@@ -1,0 +1,289 @@
+"""Triangle-mesh and point-cloud containers + OBJ/PLY loading.
+
+Port of `sixdof_tpu/io/mesh_io.py` (the loaders and containers the pose path
+uses), numpy only.  Vertex-coloured meshes only: an OBJ whose material names
+a texture raises NotImplementedError until textured meshes are ported.
+"""
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass, field
+from typing import Optional
+
+import numpy as np
+
+
+@dataclass
+class PointCloud:
+    """Minimal Open3D-PointCloud stand-in: numpy points/colors/normals."""
+
+    points: np.ndarray  # (N,3) float64
+    colors: Optional[np.ndarray] = None  # (N,3) float in [0,1]
+    normals: Optional[np.ndarray] = None  # (N,3)
+
+    def __post_init__(self):
+        self.points = np.asarray(self.points, dtype=np.float64).reshape(-1, 3)
+        if self.colors is not None:
+            self.colors = np.asarray(self.colors, dtype=np.float64).reshape(-1, 3)
+            if self.colors.size and self.colors.max() > 1.0:
+                self.colors = self.colors / 255.0
+        if self.normals is not None:
+            self.normals = np.asarray(self.normals, dtype=np.float64).reshape(-1, 3)
+
+    def __len__(self):
+        return len(self.points)
+
+    def copy(self):
+        return PointCloud(
+            self.points.copy(),
+            None if self.colors is None else self.colors.copy(),
+            None if self.normals is None else self.normals.copy(),
+        )
+
+@dataclass
+class TriMesh:
+    """Minimal trimesh stand-in: vertices/faces + optional vertex colours."""
+
+    vertices: np.ndarray  # (V,3) float64
+    faces: np.ndarray  # (F,3) int64
+    vertex_colors: Optional[np.ndarray] = None  # (V,3) uint8-scale [0,255]
+    _vertex_normals: Optional[np.ndarray] = field(default=None, repr=False)
+
+    def __post_init__(self):
+        self.vertices = np.asarray(self.vertices, dtype=np.float64).reshape(-1, 3)
+        self.faces = np.asarray(self.faces, dtype=np.int64).reshape(-1, 3)
+
+    def copy(self):
+        m = TriMesh(
+            self.vertices.copy(),
+            self.faces.copy(),
+            None if self.vertex_colors is None else self.vertex_colors.copy(),
+        )
+        return m
+
+    @property
+    def face_normals(self):
+        v0 = self.vertices[self.faces[:, 0]]
+        v1 = self.vertices[self.faces[:, 1]]
+        v2 = self.vertices[self.faces[:, 2]]
+        n = np.cross(v1 - v0, v2 - v0)
+        norm = np.linalg.norm(n, axis=-1, keepdims=True)
+        return n / np.clip(norm, 1e-12, None)
+
+    @property
+    def vertex_normals(self):
+        """Area-weighted vertex normals (computed once, cached)."""
+        if self._vertex_normals is None:
+            v0 = self.vertices[self.faces[:, 0]]
+            v1 = self.vertices[self.faces[:, 1]]
+            v2 = self.vertices[self.faces[:, 2]]
+            fn = np.cross(v1 - v0, v2 - v0)  # area-weighted
+            vn = np.zeros_like(self.vertices)
+            for k in range(3):
+                np.add.at(vn, self.faces[:, k], fn)
+            norm = np.linalg.norm(vn, axis=-1, keepdims=True)
+            self._vertex_normals = vn / np.clip(norm, 1e-12, None)
+        return self._vertex_normals
+
+    def sample_points(self, n, seed=0):
+        """Area-weighted uniform surface sampling -> PointCloud with normals."""
+        rng = np.random.RandomState(seed)
+        v0 = self.vertices[self.faces[:, 0]]
+        v1 = self.vertices[self.faces[:, 1]]
+        v2 = self.vertices[self.faces[:, 2]]
+        area = np.linalg.norm(np.cross(v1 - v0, v2 - v0), axis=-1) / 2
+        probs = area / area.sum()
+        fid = rng.choice(len(self.faces), size=n, p=probs)
+        r1 = np.sqrt(rng.rand(n, 1))
+        r2 = rng.rand(n, 1)
+        pts = (1 - r1) * v0[fid] + r1 * (1 - r2) * v1[fid] + r1 * r2 * v2[fid]
+        fn = self.face_normals[fid]
+        return PointCloud(pts, normals=fn)
+
+    def is_watertight(self):
+        """True iff every undirected edge is shared by exactly two faces with
+        opposite orientation (closed, consistently wound 2-manifold).  Gates
+        backface culling in the rasterizer: for such meshes backfaces are
+        always occluded, so culling halves raster work without changing the
+        image (ops/rasterize.py render_batch(backface_cull=...))."""
+        f = np.asarray(self.faces, dtype=np.int64)
+        if len(f) == 0:
+            return False
+        n = int(f.max()) + 1
+        directed = np.concatenate(
+            [f[:, [0, 1]], f[:, [1, 2]], f[:, [2, 0]]], axis=0
+        )
+        keys = directed[:, 0] * n + directed[:, 1]
+        if len(np.unique(keys)) != len(keys):
+            return False  # a directed edge repeats -> inconsistent winding
+        rev = directed[:, 1] * n + directed[:, 0]
+        return bool(np.isin(keys, rev).all())
+
+    def signed_volume(self):
+        """Divergence-theorem volume: positive iff a closed, consistently
+        wound mesh is oriented OUTWARD.  Backface culling is only an identity
+        for outward-wound closed meshes — an inward-wound closed mesh passes
+        is_watertight() yet culling it keeps the far surface."""
+        v0 = self.vertices[self.faces[:, 0]]
+        v1 = self.vertices[self.faces[:, 1]]
+        v2 = self.vertices[self.faces[:, 2]]
+        return float(np.einsum("ij,ij->i", v0, np.cross(v1, v2)).sum() / 6.0)
+
+
+# --------------------------------------------------------------------- OBJ --
+
+
+def load_obj(path):
+    """Parse a Wavefront OBJ (v / v-with-colour / f; normals and UVs are not
+    read).  A material that names a texture raises NotImplementedError."""
+    verts, colors = [], []
+    faces = []
+    base = os.path.dirname(path)
+    with open(path, "r") as f:
+        for line in f:
+            parts = line.split()
+            if not parts:
+                continue
+            tag = parts[0]
+            if tag == "v":
+                vals = [float(x) for x in parts[1:]]
+                verts.append(vals[:3])
+                if len(vals) >= 6:
+                    colors.append(vals[3:6])
+            elif tag == "f":
+                idx = [int(p.split("/")[0]) - 1 for p in parts[1:]]
+                for k in range(1, len(idx) - 1):  # fan triangulation
+                    faces.append([idx[0], idx[k], idx[k + 1]])
+            elif tag == "mtllib":
+                mtl_path = os.path.join(base, parts[1])
+                if os.path.exists(mtl_path):
+                    with open(mtl_path) as mf:
+                        for ml in mf:
+                            mp = ml.split()
+                            if mp[:1] == ["map_Kd"] and os.path.exists(os.path.join(base, mp[1])):
+                                raise NotImplementedError(
+                                    f"{path}: textured meshes are not supported by the port yet")
+    verts = np.array(verts, dtype=np.float64)
+    faces = np.array(faces, dtype=np.int64) if faces else np.zeros((0, 3), np.int64)
+    vc = None
+    if colors:
+        vc = (np.array(colors) * 255.0).clip(0, 255)
+    return TriMesh(verts, faces, vertex_colors=vc)
+
+
+# --------------------------------------------------------------------- PLY --
+
+_PLY_DTYPES = {
+    "char": "i1", "uchar": "u1", "int8": "i1", "uint8": "u1",
+    "short": "i2", "ushort": "u2", "int16": "i2", "uint16": "u2",
+    "int": "i4", "uint": "u4", "int32": "i4", "uint32": "u4",
+    "float": "f4", "float32": "f4", "double": "f8", "float64": "f8",
+}
+
+
+def load_ply(path):
+    """Parse ascii / binary_little_endian PLY.  Returns PointCloud or TriMesh."""
+    with open(path, "rb") as f:
+        data = f.read()
+    header_end = data.find(b"end_header\n") + len(b"end_header\n")
+    header = data[:header_end].decode("ascii", errors="replace").splitlines()
+    body = data[header_end:]
+
+    fmt = None
+    elements = []  # list of (name, count, [(prop_name, dtype) or ('list', idx_dtype, cnt_dtype, name)])
+    for line in header:
+        parts = line.split()
+        if not parts:
+            continue
+        if parts[0] == "format":
+            fmt = parts[1]
+        elif parts[0] == "element":
+            elements.append([parts[1], int(parts[2]), []])
+        elif parts[0] == "property":
+            if parts[1] == "list":
+                elements[-1][2].append(("list", _PLY_DTYPES[parts[2]], _PLY_DTYPES[parts[3]], parts[4]))
+            else:
+                elements[-1][2].append((parts[1], _PLY_DTYPES[parts[1]], parts[2]))
+
+    parsed = {}
+    if fmt == "ascii":
+        tokens = body.decode("ascii").split("\n")
+        li = 0
+        for name, count, props in elements:
+            rows = []
+            for _ in range(count):
+                while li < len(tokens) and not tokens[li].strip():
+                    li += 1
+                rows.append(tokens[li].split())
+                li += 1
+            if any(p[0] == "list" for p in props):
+                parsed[name] = [[float(x) for x in r[1:]] for r in rows]
+            else:
+                arr = np.array(rows, dtype=np.float64)
+                parsed[name] = {p[2]: arr[:, i] for i, p in enumerate(props)}
+    elif fmt == "binary_little_endian":
+        offset = 0
+        for name, count, props in elements:
+            if any(p[0] == "list" for p in props):
+                # assume a single list property (faces)
+                lp = props[0]
+                cnt_dt = np.dtype("<" + lp[1])
+                idx_dt = np.dtype("<" + lp[2])
+                rows = []
+                for _ in range(count):
+                    n = int(np.frombuffer(body, dtype=cnt_dt, count=1, offset=offset)[0])
+                    offset += cnt_dt.itemsize
+                    rows.append(np.frombuffer(body, dtype=idx_dt, count=n, offset=offset).astype(np.int64))
+                    offset += idx_dt.itemsize * n
+                parsed[name] = rows
+            else:
+                dt = np.dtype([(p[2], "<" + p[1]) for p in props])
+                arr = np.frombuffer(body, dtype=dt, count=count, offset=offset)
+                offset += dt.itemsize * count
+                parsed[name] = {p[2]: arr[p[2]].astype(np.float64) for p in props}
+    else:
+        raise ValueError(f"unsupported PLY format: {fmt}")
+
+    vtx = parsed.get("vertex", {})
+    pts = np.stack([vtx["x"], vtx["y"], vtx["z"]], axis=-1)
+    colors = None
+    if "red" in vtx:
+        colors = np.stack([vtx["red"], vtx["green"], vtx["blue"]], axis=-1) / 255.0
+    normals = None
+    if "nx" in vtx:
+        normals = np.stack([vtx["nx"], vtx["ny"], vtx["nz"]], axis=-1)
+
+    if "face" in parsed and len(parsed["face"]):
+        faces = []
+        for row in parsed["face"]:
+            row = np.asarray(row, dtype=np.int64)
+            for k in range(1, len(row) - 1):
+                faces.append([row[0], row[k], row[k + 1]])
+        vc = None if colors is None else colors * 255.0
+        return TriMesh(pts, np.array(faces, dtype=np.int64), vertex_colors=vc)
+    return PointCloud(pts, colors=colors, normals=normals)
+
+
+# ---------------------------------------------------------------- dispatch --
+
+
+def load_mesh(path) -> TriMesh:
+    ext = os.path.splitext(path)[1].lower()
+    if ext == ".obj":
+        return load_obj(path)
+    if ext == ".ply":
+        out = load_ply(path)
+        if isinstance(out, PointCloud):
+            raise ValueError(f"{path} contains no faces")
+        return out
+    raise ValueError(f"unsupported mesh format: {ext}")
+
+
+def load_point_cloud(path) -> PointCloud:
+    ext = os.path.splitext(path)[1].lower()
+    if ext == ".ply":
+        out = load_ply(path)
+        if isinstance(out, TriMesh):
+            return PointCloud(out.vertices, colors=None)
+        return out
+    raise ValueError(f"unsupported point-cloud format: {ext}")

@@ -1,0 +1,178 @@
+"""RefineNet + ScoreNetMultiPair as PyTorch modules.
+
+Port of `sixdof_tpu/models/networks.py` (itself a mirror of the reference's
+learning/models/refine_network.py and score_network.py).  Module and
+parameter names follow the reference's state dict (encodeA.0.net.0,
+trans_head.0.self_attn.in_proj_weight, ...), so `models/weights.py` maps the
+JAX parameter tree onto them one to one.
+
+Shared conv trunk: c_in -> 64 (7x7 s2) -> 128 (3x3 s2) -> 2x ResBlock(128);
+concat(A,B) 256 -> 2x ResBlock(256) -> 512 (3x3 s2) -> 2x ResBlock(512);
+then sinusoidal position embedding over the H/8 x W/8 tokens and the
+attention heads.  Inputs and the public layout are NHWC, as in the JAX
+package; convolutions run NCHW inside.
+
+Numerics follow the JAX modules: attention is matmul + fp32 softmax, the
+LayerNorms use epsilon 1e-6 (flax's default) and compute in fp32, and the
+output heads (trans/rot/score linears) run in fp32 outside autocast.  Under
+bf16 autocast everything else runs in bf16, as `compute_dtype=bf16` does.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+def sinusoidal_position_embedding(max_len, d_model):
+    """(1, max_len, d_model) torch-PositionalEmbedding table (numpy float32)."""
+    pe = np.zeros((max_len, d_model), dtype=np.float32)
+    position = np.arange(max_len, dtype=np.float32)[:, None]
+    div_term = np.exp(np.arange(0, d_model, 2, dtype=np.float32) * -(math.log(10000.0) / d_model))
+    pe[:, 0::2] = np.sin(position * div_term)
+    pe[:, 1::2] = np.cos(position * div_term)
+    return pe[None]
+
+
+def _position_embedding(n_tokens, d_model, device):
+    """The 400-row table, extended by the same formula for larger crops."""
+    pe = sinusoidal_position_embedding(max(400, n_tokens), d_model)[:, :n_tokens]
+    return torch.as_tensor(pe, device=device)
+
+
+class ConvReLU(nn.Module):
+    def __init__(self, c_in, c_out, kernel_size=3, stride=1):
+        super().__init__()
+        pad = (kernel_size - 1) // 2
+        self.net = nn.Sequential(nn.Conv2d(c_in, c_out, kernel_size, stride, pad), nn.ReLU())
+
+    def forward(self, x):
+        return self.net(x)
+
+
+class ResnetBasicBlock(nn.Module):
+    def __init__(self, planes):
+        super().__init__()
+        self.conv1 = nn.Conv2d(planes, planes, 3, 1, 1)
+        self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1)
+
+    def forward(self, x):
+        out = F.relu(self.conv1(x))
+        return F.relu(self.conv2(out) + x)
+
+
+class MultiheadAttention(nn.Module):
+    """torch.nn.MultiheadAttention-compatible self-attention (packed QKV)."""
+
+    def __init__(self, embed_dim, num_heads):
+        super().__init__()
+        self.num_heads = num_heads
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim, embed_dim))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim))
+        self.out_proj = nn.Linear(embed_dim, embed_dim)
+        nn.init.xavier_uniform_(self.in_proj_weight)
+
+    def forward(self, x):
+        B, N, D = x.shape
+        H = self.num_heads
+        hd = D // H
+        qkv = F.linear(x, self.in_proj_weight, self.in_proj_bias)
+        q, k, v = (t.reshape(B, N, H, hd).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
+        attn = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(hd)
+        attn = attn.float().softmax(dim=-1).to(v.dtype)
+        out = torch.matmul(attn, v).transpose(1, 2).reshape(B, N, D)
+        return self.out_proj(out)
+
+
+class LayerNorm32(nn.LayerNorm):
+    """LayerNorm computed in fp32 with flax's epsilon (1e-6)."""
+
+    def __init__(self, d):
+        super().__init__(d, eps=1e-6)
+
+    def forward(self, x):
+        with torch.autocast(device_type=x.device.type, enabled=False):
+            return super().forward(x.float())
+
+
+class Linear32(nn.Linear):
+    """Output head: fp32 inputs and weights, outside autocast."""
+
+    def forward(self, x):
+        with torch.autocast(device_type=x.device.type, enabled=False):
+            return super().forward(x.float())
+
+
+class TransformerEncoderLayer(nn.Module):
+    """torch.nn.TransformerEncoderLayer (post-norm, relu) at eval."""
+
+    def __init__(self, d_model, nhead, dim_feedforward=512):
+        super().__init__()
+        self.self_attn = MultiheadAttention(d_model, nhead)
+        self.linear1 = nn.Linear(d_model, dim_feedforward)
+        self.linear2 = nn.Linear(dim_feedforward, d_model)
+        self.norm1 = LayerNorm32(d_model)
+        self.norm2 = LayerNorm32(d_model)
+
+    def forward(self, x):
+        x = self.norm1(x + self.self_attn(x))
+        f = self.linear2(F.relu(self.linear1(x)))
+        return self.norm2(x + f)
+
+
+def _encoders(c_in):
+    encA = nn.Sequential(ConvReLU(c_in, 64, 7, 2), ConvReLU(64, 128, 3, 2),
+                         ResnetBasicBlock(128), ResnetBasicBlock(128))
+    encAB = nn.Sequential(ResnetBasicBlock(256), ResnetBasicBlock(256), ConvReLU(256, 512, 3, 2),
+                          ResnetBasicBlock(512), ResnetBasicBlock(512))
+    return encA, encAB
+
+
+def _trunk(encA, encAB, A, B):
+    """NHWC A,B (n,H,W,c_in) -> (n, H/8*W/8, 512) tokens in row-major order."""
+    n = A.shape[0]
+    x = torch.cat([A, B], dim=0).permute(0, 3, 1, 2)
+    x = encA(x)
+    ab = encAB(torch.cat([x[:n], x[n:]], dim=1))
+    return ab.flatten(2).transpose(1, 2)
+
+
+class RefineNet(nn.Module):
+    """(learning/models/refine_network.py:26-93)"""
+
+    def __init__(self, c_in=6, rot_rep="axis_angle"):
+        super().__init__()
+        self.encodeA, self.encodeAB = _encoders(c_in)
+        rot_out = 3 if rot_rep == "axis_angle" else 6
+        self.trans_head = nn.Sequential(TransformerEncoderLayer(512, 4, 512), Linear32(512, 3))
+        self.rot_head = nn.Sequential(TransformerEncoderLayer(512, 4, 512), Linear32(512, rot_out))
+
+    def forward(self, A, B):
+        tokens = _trunk(self.encodeA, self.encodeAB, A, B)
+        tokens = tokens + _position_embedding(tokens.shape[1], 512, tokens.device).to(tokens.dtype)
+        trans = self.trans_head(tokens).mean(dim=1)
+        rot = self.rot_head(tokens).mean(dim=1)
+        return {"trans": trans.float(), "rot": rot.float()}
+
+
+class ScoreNetMultiPair(nn.Module):
+    """(learning/models/score_network.py:27-90)"""
+
+    def __init__(self, c_in=6):
+        super().__init__()
+        self.encoderA, self.encoderAB = _encoders(c_in)
+        self.att = MultiheadAttention(512, 4)
+        self.att_cross = MultiheadAttention(512, 4)
+        self.linear = Linear32(512, 1)
+
+    def forward(self, A, B, L):
+        """A,B: (n*L,H,W,c_in) NHWC; returns {"score_logit": (n, L)}."""
+        tokens = _trunk(self.encoderA, self.encoderAB, A, B)
+        tokens = tokens + _position_embedding(tokens.shape[1], 512, tokens.device).to(tokens.dtype)
+        feats = self.att(tokens).mean(dim=1)
+        x = feats.reshape(A.shape[0] // L, L, -1)
+        x = self.att_cross(x)
+        return {"score_logit": self.linear(x)[..., 0]}

@@ -1,0 +1,360 @@
+"""Refiner / scorer predictors: crop construction + iterative pose updates.
+
+Port of `sixdof_tpu/models/predict.py`.  The JAX package fuses each stage
+into one jitted program; here the same stages are plain functions on
+tensors that run eagerly on the caller's device:
+
+  JAX                          port
+  _make_AB                     _make_AB
+  refine_poses_jit             refine_poses
+  score_poses_jit              score_poses
+  register_pipeline_jit        register_pipeline
+  track_pose_jit               track_pose (with _track_depth_polish)
+
+Every hypothesis render goes through `ops/rasterize.py::render_batch`, so
+through raster kernel K1 on the card; `plain_raster=True` routes them
+through its plain PyTorch version instead.  Geometry is fp32; the networks
+run under bf16 autocast unless a predictor is built with float32.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..device import network_autocast, resolve_device
+from ..ops.depth_filter import bilateral_filter_depth, erode_depth
+from ..ops.geometry import (compute_crop_window_tf_batch, depth2xyzmap,
+                            egocentric_delta_pose_to_pose)
+from ..ops.icp import icp_point_to_plane
+from ..ops.lie import rotation_6d_to_matrix, so3_exp_map, so3_log_map
+from ..ops.rasterize import MeshArrays, render_batch
+from ..ops.warp import warp_crop_batch
+from .networks import RefineNet, ScoreNetMultiPair
+from .weights import refine_state_dict, score_state_dict
+
+DEFAULT_REFINER_CFG = dict(
+    input_resize=(160, 160),
+    crop_ratio=1.2,
+    c_in=6,
+    rot_rep="axis_angle",  # or "6d"; translation is the tracknet form
+    normalize_xyz=False,
+    trans_normalizer=0.02,
+    rot_normalizer=0.3490658503988659,  # 20 deg
+    # visibility substitution (see _make_AB); must match how the weights
+    # were trained: False | True | a float gate ceiling
+    occ_sub=False,
+)
+
+DEFAULT_SCORER_CFG = dict(
+    input_resize=(160, 160),
+    crop_ratio=1.2,
+    c_in=6,
+    normalize_xyz=False,
+    # 'network' | 'depth' (analytic render-vs-observed) | 'hybrid' (sum)
+    score_mode="hybrid",
+)
+
+
+def to_rgb01(rgb, device):
+    """uint8-or-float image -> float32 [0,1] tensor (max > 1.5 means 0-255)."""
+    arr = np.asarray(rgb)
+    out = torch.as_tensor(arr, dtype=torch.float32, device=device)
+    if float(arr.max(initial=0.0)) > 1.5:
+        out = out / 255.0
+    return out
+
+
+def _make_AB(mesh, poses, rgb01, xyz_map, K, crop_ratio, mesh_diameter, out_hw,
+             normalize_xyz, invalid_z_thresh, backface_cull=False, occ_sub=False,
+             plain_raster=False):
+    """(A = render, B = real) 6-channel NHWC crop pair for a pose batch.
+    Returns (A, B, tf_to_crops, rend)."""
+    tf_to_crops = compute_crop_window_tf_batch(poses, K, crop_ratio=crop_ratio,
+                                               out_size=(out_hw[1], out_hw[0]),
+                                               mesh_diameter=mesh_diameter)
+    rend = render_batch(mesh, poses, K, tf_to_crops, out_hw=out_hw,
+                        backface_cull=backface_cull, plain_raster=plain_raster)
+    rgbA = rend["color"]
+    xyzA = rend["xyz_map"]
+    rgbB = warp_crop_batch(rgb01, tf_to_crops, out_hw, mode="bilinear")
+    xyzB = warp_crop_batch(xyz_map, tf_to_crops, out_hw, mode="nearest")
+
+    center = poses[:, :3, 3][:, None, None, :]
+    rend = dict(rend)
+    rend["obs_validB"] = xyzB[..., 2] > invalid_z_thresh
+    rend["xyzA_m"] = xyzA - center
+    rend["xyzB_m"] = xyzB - center
+    sub = None
+    if occ_sub:
+        hi = 0.6 if occ_sub is True else float(occ_sub)
+        validA = xyzA[..., 2] > invalid_z_thresh
+        validB = xyzB[..., 2] > invalid_z_thresh
+        both = validA & validB
+        occ = both & (xyzB[..., 2] < xyzA[..., 2] - 0.01)
+        frac = occ.sum(dim=(1, 2)) / torch.clamp(both.sum(dim=(1, 2)), min=1)
+        gate = (frac > 0.02) & (frac < hi)
+        sub = (occ & gate[:, None, None])[..., None]
+    if normalize_xyz:
+        r = mesh_diameter / 2.0
+        invalidA = xyzA[..., 2:3] < invalid_z_thresh
+        invalidB = xyzB[..., 2:3] < invalid_z_thresh
+        xyzA = (xyzA - center) / r
+        xyzB = (xyzB - center) / r
+        xyzA = torch.where(invalidA | (xyzA.abs() >= 2).any(-1, keepdim=True), 0.0, xyzA)
+        xyzB = torch.where(invalidB | (xyzB.abs() >= 2).any(-1, keepdim=True), 0.0, xyzB)
+    else:
+        xyzA = rend["xyzA_m"]
+        xyzB = rend["xyzB_m"]
+    A = torch.cat([rgbA, xyzA], dim=-1)
+    B = torch.cat([rgbB, xyzB], dim=-1)
+    if sub is not None:
+        B = torch.where(sub, A, B)
+    return A, B, tf_to_crops, rend
+
+
+@torch.no_grad()
+def refine_poses(model, mesh: MeshArrays, poses, rgb01, xyz_map, K, mesh_diameter, crop_ratio,
+                 trans_normalizer, rot_normalizer, iterations: int, out_hw=(160, 160),
+                 normalize_xyz=False, rot_rep="axis_angle", backface_cull=False, occ_sub=False,
+                 plain_raster=False, compute_dtype=torch.bfloat16):
+    """`iterations` render -> compare -> update refinement steps (tracknet
+    translation: tanh-bounded by trans_normalizer, or raw when xyz inputs
+    are normalized)."""
+    poses = poses.float()
+    for _ in range(iterations):
+        A, B, _, _ = _make_AB(
+            mesh, poses, rgb01, xyz_map, K, crop_ratio, mesh_diameter, out_hw, normalize_xyz,
+            invalid_z_thresh=0.001, backface_cull=backface_cull, occ_sub=occ_sub,
+            plain_raster=plain_raster)
+        with network_autocast(poses.device, compute_dtype):
+            out = model(A, B)
+        trans_delta = out["trans"] if normalize_xyz else torch.tanh(out["trans"]) * trans_normalizer
+        if rot_rep == "axis_angle":
+            rot_mat_delta = so3_exp_map(torch.tanh(out["rot"]) * rot_normalizer).transpose(-1, -2)
+        elif rot_rep == "6d":
+            rot_mat_delta = rotation_6d_to_matrix(out["rot"]).transpose(-1, -2)
+        else:
+            raise ValueError(rot_rep)
+        if normalize_xyz:
+            trans_delta = trans_delta * (mesh_diameter / 2.0)
+        poses = egocentric_delta_pose_to_pose(poses, trans_delta, rot_mat_delta)
+    return poses
+
+
+def _depth_alignment_score(A, B, rend, poses, mesh_diameter):
+    """Occlusion-aware analytic render-vs-observed score (higher = better):
+    support fraction - violation fraction + residual sharpness + 2 x colour
+    agreement on the supporting pixels."""
+    alpha = rend["alpha"]
+    xyzA = rend["xyzA_m"]
+    xyzB = rend["xyzB_m"]
+    both = (alpha > 0) & rend["obs_validB"]
+    d = torch.linalg.norm(xyzA - xyzB, dim=-1)
+    dz = xyzB[..., 2] - xyzA[..., 2]
+    tau = 0.05 * mesh_diameter
+    occluded = both & (dz < -tau)
+    support = both & (d <= tau)
+    violate = both & (dz > tau)
+    n_vis = torch.clamp(both.sum(dim=(1, 2)) - occluded.sum(dim=(1, 2)), min=1)
+    support_frac = support.sum(dim=(1, 2)) / n_vis
+    violate_frac = violate.sum(dim=(1, 2)) / n_vis
+    n_sup = torch.clamp(support.sum(dim=(1, 2)), min=1)
+    col = -torch.where(support[..., None], (A[..., :3] - B[..., :3]).abs(), 0.0).sum(
+        dim=(1, 2, 3)) / (3 * n_sup)
+    geom = -torch.where(support, d, 0.0).sum(dim=(1, 2)) / n_sup
+    return support_frac - violate_frac + geom / tau + 2.0 * col
+
+
+@torch.no_grad()
+def score_poses(model, mesh: MeshArrays, poses, rgb01, xyz_map, K, mesh_diameter, crop_ratio,
+                out_hw=(160, 160), normalize_xyz=False, mode="network", backface_cull=False,
+                plain_raster=False, compute_dtype=torch.bfloat16):
+    """Single-pass hypothesis scoring: 'network', 'depth' or 'hybrid' (sum)."""
+    A, B, _, rend = _make_AB(mesh, poses, rgb01, xyz_map, K, crop_ratio, mesh_diameter, out_hw,
+                             normalize_xyz, invalid_z_thresh=0.1, backface_cull=backface_cull,
+                             plain_raster=plain_raster)
+    score = torch.zeros(poses.shape[0], dtype=torch.float32, device=poses.device)
+    if mode in ("network", "hybrid"):
+        with network_autocast(poses.device, compute_dtype):
+            out = model(A, B, L=poses.shape[0])
+        # the winning pass gets +100, like scores_global[global_ids] = scores+100
+        score = score + out["score_logit"].reshape(-1).float() + 100.0
+    if mode in ("depth", "hybrid"):
+        score = score + _depth_alignment_score(A, B, rend, poses, mesh_diameter)
+    return score
+
+
+@torch.no_grad()
+def register_pipeline(rmodel, smodel, mesh: MeshArrays, poses, rgb01, depth, K, mesh_diameter,
+                      crop_ratio, trans_normalizer, rot_normalizer, prune_to, coarse_iters,
+                      iterations, out_hw=(160, 160), coarse_hw=None, normalize_xyz=False,
+                      rot_rep="axis_angle", score_mode="hybrid", backface_cull=False,
+                      score_crop_ratio=None, score_normalize_xyz=None, score_hw=None,
+                      occ_sub=False, plain_raster=False, compute_dtype=torch.bfloat16):
+    """The registration cascade: refine the full grid for coarse_iters at
+    coarse_hw -> score -> keep the prune_to best -> refine the rest of the
+    iterations at out_hw -> score -> sort.
+    @depth: already-filtered depth.  Returns (sorted_poses (K,4,4), sorted_scores (K,))."""
+    xyz_map = depth2xyzmap(depth, K)
+    n = poses.shape[0]
+    common = dict(backface_cull=backface_cull, plain_raster=plain_raster,
+                  compute_dtype=compute_dtype)
+
+    def refine(p, iters, hw):
+        return refine_poses(rmodel, mesh, p, rgb01, xyz_map, K, mesh_diameter, crop_ratio,
+                            trans_normalizer, rot_normalizer, iters, hw, normalize_xyz,
+                            rot_rep, occ_sub=occ_sub, **common)
+
+    s_crop = crop_ratio if score_crop_ratio is None else score_crop_ratio
+    s_norm = normalize_xyz if score_normalize_xyz is None else score_normalize_xyz
+
+    def score(p, hw):
+        return score_poses(smodel, mesh, p, rgb01, xyz_map, K, mesh_diameter, s_crop, hw,
+                           s_norm, score_mode, **common)
+
+    if prune_to and prune_to < n and iterations > coarse_iters:
+        chw = coarse_hw or out_hw
+        poses = refine(poses, coarse_iters, chw)
+        # descending, equal scores in index order (lax.top_k's order)
+        keep = torch.argsort(-score(poses, chw), stable=True)[:prune_to]
+        poses = poses[keep]
+        iterations = iterations - coarse_iters
+    poses = refine(poses, iterations, out_hw)
+    scores = score(poses, out_hw if score_hw is None else score_hw)
+    order = torch.argsort(-scores, stable=True)
+    return poses[order], scores[order]
+
+
+def pack_rgbd(rgb_u8, depth_u16):
+    """(H,W,3) uint8 + (H,W) uint16-mm -> one (H,W,5) uint8 buffer (one upload)."""
+    return np.concatenate(
+        [rgb_u8, depth_u16.view(np.uint8).reshape(*depth_u16.shape, 2)], axis=-1)
+
+
+@torch.no_grad()
+def track_pose(model, mesh: MeshArrays, pose_last, rgbd_u8, K, mesh_diameter, crop_ratio,
+               trans_normalizer, rot_normalizer, iterations: int, out_hw=(160, 160),
+               normalize_xyz=False, rot_rep="axis_angle", backface_cull=False, occ_sub=False,
+               polish_tgt=None, polish_tn=None, polish_tmask=None, plain_raster=False,
+               compute_dtype=torch.bfloat16):
+    """One tracking step on the device: unpack -> depth erode + bilateral ->
+    xyz map -> refine -> (track polish).  @rgbd_u8: (H,W,5) uint8 tensor from
+    pack_rgbd.  Returns (pose (1,4,4), filtered depth)."""
+    rgb01 = rgbd_u8[..., :3].float() / 255.0
+    depth_mm = rgbd_u8[..., 3].int() | (rgbd_u8[..., 4].int() << 8)  # little-endian uint16
+    depth = erode_depth(depth_mm.float() / 1000.0, radius=2)
+    depth = bilateral_filter_depth(depth, radius=2)
+    xyz_map = depth2xyzmap(depth, K)
+    poses = refine_poses(model, mesh, pose_last, rgb01, xyz_map, K, mesh_diameter, crop_ratio,
+                         trans_normalizer, rot_normalizer, iterations, out_hw, normalize_xyz,
+                         rot_rep, backface_cull, occ_sub, plain_raster, compute_dtype)
+    if polish_tgt is not None:
+        poses = _track_depth_polish(mesh, poses, rgb01, xyz_map, K, crop_ratio, polish_tgt,
+                                    polish_tn, polish_tmask, mesh_diameter, backface_cull,
+                                    plain_raster)
+    return poses, depth
+
+
+def _rigid_inv(tf):
+    Rt = tf[:3, :3].T
+    out = torch.eye(4, dtype=tf.dtype, device=tf.device)
+    out[:3, :3] = Rt
+    out[:3, 3] = -Rt @ tf[:3, 3]
+    return out
+
+
+def _track_depth_polish(model_mesh, poses, rgb01, xyz_map, K, crop_ratio, tgt, tgt_normals,
+                        tgt_mask, mesh_diameter, backface_cull=False, plain_raster=False):
+    """Per-frame depth polish after the learned refine: coarse + fine
+    point-to-plane ICP of the visible observed cloud (one 96x96 render of the
+    tracked pose selects it) against a dense model sampling, taken as a
+    damped 0.7 step and kept only when the correction is plausible
+    (< 20 deg, < 0.25 diameters, fitness > 0.05)."""
+    pose0 = poses[0]
+    d = mesh_diameter
+    _, _, _, rend = _make_AB(model_mesh, poses, rgb01, xyz_map, K, crop_ratio, mesh_diameter,
+                             (96, 96), normalize_xyz=False, invalid_z_thresh=0.001,
+                             backface_cull=backface_cull, plain_raster=plain_raster)
+    center = pose0[:3, 3]
+    xyzB = (rend["xyzB_m"][0, ::2, ::2] + center).reshape(-1, 3)
+    zA = rend["xyzA_m"][0, ::2, ::2, 2].reshape(-1) + center[2]
+    # erode the rendered silhouette 2 px (5x5 min filter, SAME padding)
+    a2 = -F.max_pool2d(-rend["alpha"][0][None, None], 5, stride=1, padding=2)[0, 0]
+    alpha = a2[::2, ::2].reshape(-1) > 0
+    obs = rend["obs_validB"][0, ::2, ::2].reshape(-1)
+    valid = alpha & obs & ((xyzB[:, 2] - zA).abs() < 0.12 * d)
+    init = _rigid_inv(pose0)
+    r1 = icp_point_to_plane(xyzB, valid, tgt, tgt_normals, tgt_mask, init, 0.05 * d, max_iter=6)
+    r2 = icp_point_to_plane(xyzB, valid, tgt, tgt_normals, tgt_mask, r1.transformation,
+                            max(0.02 * d, 0.004), max_iter=6)
+    polished = _rigid_inv(r2.transformation)
+    dR = polished[:3, :3].T @ pose0[:3, :3]
+    cos_ang = torch.clamp((torch.trace(dR) - 1.0) / 2.0, -1.0, 1.0)
+    dt = torch.linalg.norm(polished[:3, 3] - pose0[:3, 3])
+    ok = (cos_ang > math.cos(math.radians(20.0))) & (dt < 0.25 * d) & (r2.fitness > 0.05)
+    step = 0.7  # damped step toward the depth optimum (1.0 oscillates)
+    half_w = step * so3_log_map((polished[:3, :3] @ pose0[:3, :3].T)[None])
+    blended = torch.eye(4, dtype=poses.dtype, device=poses.device)
+    blended[:3, :3] = so3_exp_map(half_w)[0] @ pose0[:3, :3]
+    blended[:3, 3] = step * polished[:3, 3] + (1.0 - step) * pose0[:3, 3]
+    return torch.where(ok, blended[None], poses)
+
+
+def _seeded_init(model: torch.nn.Module, generator: torch.Generator):
+    """Draw every parameter from @generator: He-normal convolutions, LeCun-
+    normal linears (the heads at a tenth of that, so seeded outputs stay
+    inside tanh's range), zero biases, unit LayerNorm scales."""
+    for name, p in model.named_parameters():
+        with torch.no_grad():
+            if p.ndim == 1:
+                p.fill_(1.0 if name.endswith("norm1.weight") or name.endswith("norm2.weight")
+                        else 0.0)
+                continue
+            fan_in = p[0].numel()
+            std = math.sqrt(2.0 / fan_in) if p.ndim == 4 else math.sqrt(1.0 / fan_in)
+            if name.startswith(("trans_head.1", "rot_head.1", "linear")):
+                std *= 0.1
+            p.copy_(torch.randn(p.shape, generator=generator) * std)
+
+
+class _PredictorBase:
+    def _build(self, model, params, seed, convert, device):
+        if params is not None:
+            model.load_state_dict(convert(params))
+        else:
+            _seeded_init(model, torch.Generator().manual_seed(int(seed)))
+        return model.to(device).eval()
+
+
+class PoseRefinePredictor(_PredictorBase):
+    """Refiner: @params is the JAX parameter tree as numpy arrays (converted
+    through models/weights.py), or None for a seeded initialisation.
+    @device: None = the CUDA card (raises without one), or e.g. "cpu"."""
+
+    def __init__(self, device=None, cfg: Optional[dict] = None, params=None, seed=0,
+                 compute_dtype=torch.bfloat16):
+        self.cfg = dict(DEFAULT_REFINER_CFG)
+        if cfg:
+            self.cfg.update(cfg)
+        self.device = resolve_device(device)
+        self.compute_dtype = compute_dtype
+        self.model = self._build(RefineNet(c_in=self.cfg["c_in"], rot_rep=self.cfg["rot_rep"]),
+                                 params, seed, refine_state_dict, self.device)
+
+
+class ScorePredictor(_PredictorBase):
+    """Scorer: @params as for PoseRefinePredictor."""
+
+    def __init__(self, device=None, cfg: Optional[dict] = None, params=None, seed=1,
+                 compute_dtype=torch.bfloat16):
+        self.cfg = dict(DEFAULT_SCORER_CFG)
+        if cfg:
+            self.cfg.update(cfg)
+        self.device = resolve_device(device)
+        self.compute_dtype = compute_dtype
+        self.model = self._build(ScoreNetMultiPair(c_in=self.cfg["c_in"]), params, seed,
+                                 score_state_dict, self.device)

@@ -1,0 +1,102 @@
+"""The PyTorch port stands alone: no JAX, no JAX package, no host libraries
+the card does not have, and no silent CPU fallback."""
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ["jax", "flax", "orbax", "sixdof_tpu", "cv2", "PIL", "imageio", "zstandard", "h5py",
+             "open3d"]
+
+
+def test_import_graph_has_no_jax_or_host_libraries():
+    # a subprocess: tests/conftest.py imports jax into this process
+    code = f"""
+import importlib, pkgutil, sys
+import sixdof_tpu_torch
+for m in pkgutil.walk_packages(sixdof_tpu_torch.__path__, "sixdof_tpu_torch."):
+    importlib.import_module(m.name)
+import chip_smoke
+bad = [n for n in sys.modules if n.split(".")[0] in {FORBIDDEN!r}]
+print("BAD", bad)
+print("N", sum(n.startswith("sixdof_tpu_torch") for n in sys.modules))
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+    n = int(out.stdout.split("N ")[1].split()[0])
+    assert n >= 20  # every submodule was imported
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    import torch
+
+    from sixdof_tpu_torch.device import resolve_device
+    from sixdof_tpu_torch.estimater import FoundationPose
+    from sixdof_tpu_torch.io.mesh_io import TriMesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device("cuda")
+    assert resolve_device("cpu").type == "cpu"
+    v = np.eye(3)
+    mesh = TriMesh(np.vstack([v, [0, 0, 0]]), [[0, 1, 2], [0, 2, 3], [0, 3, 1], [1, 3, 2]])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FoundationPose(model_pts=mesh.vertices, model_normals=mesh.vertex_normals, mesh=mesh)
+    from sixdof_tpu_torch.models.predict import PoseRefinePredictor, ScorePredictor
+
+    for predictor in (PoseRefinePredictor, ScorePredictor):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            predictor()
+
+
+def test_kernel_wrapper_dispatch(monkeypatch):
+    """CPU tensors take the plain version; a CUDA tensor never falls back."""
+    import torch
+
+    from sixdof_tpu_torch.kernels import raster
+
+    coef = torch.zeros((1, 2, 4, 3))
+    coef[:, :, 0, 2] = -1.0  # never inside
+    counts = torch.tensor([2], dtype=torch.int32)
+    z, t = raster.rasterize_zbuffer(coef, counts, 4, 4)
+    assert (z == 0).all() and (t == -1).all()
+    before = raster.rasterize_zbuffer.launches
+    monkeypatch.setattr(raster, "_nvcc", lambda: (_ for _ in ()).throw(RuntimeError("no nvcc")))
+    monkeypatch.setattr(raster, "_lib", None)
+
+    class FakeCuda:  # a tensor that claims to be on the card
+        device = torch.device("cuda")
+        shape = coef.shape
+        dtype = torch.float32
+
+        def is_contiguous(self):
+            return True
+
+        def data_ptr(self):
+            return 0
+
+    fake_counts = torch.tensor([2], dtype=torch.int32)
+    with pytest.raises((RuntimeError, ValueError)):
+        raster.rasterize_zbuffer(FakeCuda(), fake_counts, 4, 4)
+    assert raster.rasterize_zbuffer.launches == before
+
+
+def test_chip_smoke_exits_nonzero_without_cuda(tmp_path):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, os.path.join(REPO, "chip_smoke.py")], cwd=REPO,
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0 and '"ok"' not in out.stdout
+    # alone, without the repository around it
+    lone = tmp_path / "chip_smoke.py"
+    lone.write_text(open(os.path.join(REPO, "chip_smoke.py")).read())
+    out = subprocess.run([sys.executable, str(lone)], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0 and '"ok"' not in out.stdout

@@ -1,0 +1,67 @@
+"""The hand-written CUDA kernels against their plain PyTorch versions, on
+the card.  Skips without CUDA.  Imports no JAX, so it runs on a machine
+without it:  python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py"""
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from sixdof_tpu_torch.io.mesh_io import load_mesh
+from sixdof_tpu_torch.kernels import raster as k1
+from sixdof_tpu_torch.ops.geometry import compute_crop_window_tf_batch
+from sixdof_tpu_torch.ops.hypotheses import make_rotation_grid
+from sixdof_tpu_torch.ops.rasterize import make_mesh_arrays, render_batch, zbuffer_setup
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MESH = os.path.join(REPO, "demo_data", "synth_box", "mesh", "model_scaled_down.obj")
+K_IMG = np.array([[600, 0, 320], [0, 600, 240], [0, 0, 1]], np.float32)
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,hw,cull", [(252, (96, 96), True), (64, (160, 160), True),
+                                       (16, (160, 160), False), (3, (37, 53), True)])
+def test_raster_kernel_matches_plain(card, B, hw, cull):
+    mesh = load_mesh(MESH)
+    mesh.vertices -= (mesh.vertices.max(0) + mesh.vertices.min(0)) / 2
+    arrays = make_mesh_arrays(mesh, card)
+    grid = make_rotation_grid()[:B].copy()
+    grid[:, :3, 3] = np.array([0.0, 0.0, 0.55]) + np.random.RandomState(B).uniform(
+        -0.02, 0.02, (B, 3))
+    poses = torch.tensor(grid, device=card)
+    K = torch.tensor(K_IMG, device=card)
+    tfs = compute_crop_window_tf_batch(poses, K, 1.2, (hw[1], hw[0]), 0.1)
+    s = zbuffer_setup(arrays, poses, K, tfs, backface_cull=cull)
+    before = k1.rasterize_zbuffer.launches
+    zk, tk = k1.rasterize_zbuffer(s["coef_c"], s["counts"], *hw)
+    assert k1.rasterize_zbuffer.launches == before + 1
+    zp, tp = k1.rasterize_zbuffer_plain(s["coef_c"], s["counts"], *hw)
+    torch.cuda.synchronize()
+    assert (tk >= 0).double().mean() > 0.05
+    assert torch.equal(zk, zp)  # the same fp32 operations in the same order
+    assert (tk == tp).double().mean() >= 0.999
+    rk = render_batch(arrays, poses, K, tfs, out_hw=hw, backface_cull=cull)
+    rp = render_batch(arrays, poses, K, tfs, out_hw=hw, backface_cull=cull, plain_raster=True)
+    for key in rk:
+        assert torch.equal(rk[key], rp[key]), key
+
+
+@pytest.mark.cuda
+def test_raster_kernel_rejects_bad_inputs(card):
+    coef = torch.zeros((2, 5, 4, 3), device=card)
+    counts = torch.full((2,), 5, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError):
+        k1.rasterize_zbuffer(coef.double(), counts, 8, 8)
+    with pytest.raises(ValueError):
+        k1.rasterize_zbuffer(coef, counts.long(), 8, 8)
+    with pytest.raises(ValueError):
+        k1.rasterize_zbuffer(coef.transpose(1, 2), counts, 8, 8)
+    z, t = k1.rasterize_zbuffer(coef, counts, 8, 8)  # all-zero planes: iz = 0, never inside
+    assert (t == -1).all() and (z == 0).all()
