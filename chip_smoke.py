@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch/CUDA port's pose server on one NVIDIA card and check it.
+"""Run the PyTorch/CUDA port's pose server and capture path on one NVIDIA
+card and check them.
 
     python3 chip_smoke.py
 
@@ -7,7 +8,8 @@ Phases, one JSON line each; a phase that fails raises and the script exits
 non-zero without printing the final result:
 
   device   the card's name and power limit (torch and nvidia-smi)
-  build    nvcc compiles sixdof_tpu_torch/csrc/raster_zbuffer.cu
+  build    nvcc compiles both kernel sources at once
+           (sixdof_tpu_torch/csrc/raster_zbuffer.cu, csrc/ray_mesh.cu)
   k1       raster kernel K1 against its plain PyTorch version on the card,
            on the register shapes (B=252 at 96x96, B=64 at 160x160) with
            backface culling and compaction; kernel and plain timings
@@ -16,11 +18,22 @@ non-zero without printing the final result:
            polish, then track_one with 2 iterations and the track polish on
            frames 1-5) with seeded networks, through the kernel; then the
            same loop with the plain raster, which must agree
+  k2       ray-mesh kernel K2 against its plain version at three shapes:
+           the capture's heatmap rays (587 x 1280 triangles of model.obj
+           posed by the annotated pose), 8192 seeded rays (MAX_DEFECT_RAYS,
+           some masked) and every pixel of the 640x480 frame; t bit-equal
+  capture  (a) refine_pose_with_icp from the annotated pose of frame 0, the
+           frame-0 defect ray trace and one async capture on frame 2;
+           (b) the port's run loop (sixdof_tpu_torch/app/run.py::main) on
+           frames 0-5 with async captures every 2 frames (3 K2 launches);
+           then (a) and (b) again through K2's plain version, which must give
+           the same transforms and defect points
   kernels  each kernel the run launched, with its check and numbers
 
 The last line is {"ok": true, "device": {...}}.  Without CUDA the script
 exits 1 before any result.  `run(device="cpu", small=True)` rehearses every
-phase at a tiny size with the plain raster (tests/test_torch_chip_smoke.py).
+phase at a tiny size through the plain versions
+(tests/test_torch_chip_smoke.py).
 """
 from __future__ import annotations
 
@@ -44,6 +57,16 @@ K1_TID_MIN_AGREE = 0.999
 # kernel run vs plain-raster run of the pose server
 POSE_ROT_DEG_MAX = 0.1
 POSE_TRANS_M_MAX = 1e-4
+# K2 against its plain version: the same IEEE fp32 operations in the same
+# order, so hit masks equal and t bit-equal (tolerance 0)
+K2_T_ATOL = 0.0
+# capture: ICP from the annotated pose must register; kernel and plain-K2
+# runs must give the same transforms and defect points (K2 is bit-equal to
+# its plain version and the rest of each run is the same computation:
+# tolerance 0)
+CAPTURE_MIN_FITNESS = 0.9
+CAPTURE_TF_ATOL = 0.0
+CAPTURE_PTS_ATOL = 0.0
 
 
 def emit(obj):
@@ -197,6 +220,264 @@ def phase_pose(device, cfg, small, n_frames, plain_raster, refiner, scorer, warm
                 top_score=float(est.scores[0]), scores=est.scores)
 
 
+def phase_k2(device, scene, small, n_time):
+    """K2 against its plain version at the capture's shapes: the heatmap's
+    rays, MAX_DEFECT_RAYS seeded rays (every 11th masked), every pixel of
+    the frame; triangles: model.obj posed by the annotated pose of frame 0
+    in the colour camera (mm)."""
+    import numpy as np
+    import torch
+
+    from sixdof_tpu_torch.app.defect_projection import (MAX_DEFECT_RAYS, compute_rays,
+                                                       heatmap_to_points)
+    from sixdof_tpu_torch.io.readers import DataReader
+    from sixdof_tpu_torch.kernels import raytrace as k2
+    from sixdof_tpu_torch.ops.raytrace import mesh_to_tri_verts
+
+    reader = DataReader(scene)
+    mesh = reader.target_mesh.copy()
+    mesh.transform(reader.scale_translation_to_millimeters(reader.get_gt_pose(0)))
+    tri, tri_mask = mesh_to_tri_verts(mesh.vertices, mesh.faces)
+    tris = k2.pack_tris(torch.as_tensor(tri, device=device),
+                        torch.as_tensor(tri_mask, device=device))
+    heatmap, _ = reader.get_heatmap()
+    app_rays, _ = compute_rays(heatmap_to_points(heatmap, 0.75), reader.color_pinhole)
+    rng = np.random.RandomState(0)
+    centre = mesh.vertices.mean(axis=0)
+    rand = centre + rng.randn(64 if small else MAX_DEFECT_RAYS, 3) * 30.0
+    rand_mask = np.arange(len(rand)) % 11 != 0
+    H, W = reader.color_pinhole.height, reader.color_pinhole.width
+    Kp = reader.color_pinhole.intrinsic_matrix
+    step = 20 if small else 1  # the rehearsal takes every 20th pixel
+    ys, xs = np.mgrid[0:H:step, 0:W:step]
+    pix = np.stack([(xs - Kp[0, 2]) / Kp[0, 0], (ys - Kp[1, 2]) / Kp[1, 1], np.ones_like(xs)],
+                   axis=-1).reshape(-1, 3)
+    cases = [("heatmap", app_rays, np.ones(len(app_rays), bool)),
+             ("max_defect_rays", rand, rand_mask),
+             ("full_frame", pix, np.ones(len(pix), bool))]
+    results = []
+    for name, dirs, mask in cases:
+        dirs = dirs / np.linalg.norm(dirs, axis=1, keepdims=True)
+        d = torch.as_tensor(dirs, dtype=torch.float32, device=device)
+        o = torch.zeros_like(d)
+        m = torch.as_tensor(mask, device=device)
+        tk = k2.ray_mesh_intersect(o, d, m, tris)
+        tp = k2.ray_mesh_intersect_plain(o, d, m, tris)
+        _sync(device)
+        hits_equal = bool((torch.isfinite(tk) == torch.isfinite(tp)).all())
+        both = torch.isfinite(tk) & torch.isfinite(tp)
+        err = float((tk[both] - tp[both]).abs().max()) if bool(both.any()) else 0.0
+        for _ in range(3):
+            k2.ray_mesh_intersect(o, d, m, tris)
+        ms = _timed(lambda: k2.ray_mesh_intersect(o, d, m, tris), device, n_time)
+        n_plain = 2 if name == "full_frame" else max(1, n_time // 10)
+        plain_ms = _timed(lambda: k2.ray_mesh_intersect_plain(o, d, m, tris), device, n_plain)
+        N, T = len(dirs), len(tri)
+        pairs = int(mask.sum()) * int(tri_mask.sum())
+        bytes_moved = N * (12 + 12 + 1) + T * 36 + N * 4
+        t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+        t_ops = pairs * k2.FLOPS_PER_PAIR / FP32_FLOPS * 1e3
+        res = dict(shape=name, rays=N, valid_rays=int(mask.sum()), triangles=T, pairs=pairs,
+                   hits=int(torch.isfinite(tk).sum()), hits_equal=hits_equal,
+                   max_abs_err=err, ms=ms, plain_ms=plain_ms, plain_calls=n_plain,
+                   bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes > t_ops else "operations",
+                   gflops=pairs * k2.FLOPS_PER_PAIR / (ms * 1e-3) / 1e9)
+        emit({"phase": "k2", **res})
+        if not hits_equal or err > K2_T_ATOL or res["hits"] == 0:
+            raise RuntimeError(f"K2 disagrees with its plain version at {name}: {res}")
+        results.append(res)
+    return results
+
+
+def _surface_median_mm(points, mesh, n_sample=200_000):
+    """Median distance (mm) of @points to @mesh's surface, measured against a
+    dense uniform sampling of the surface."""
+    import numpy as np
+    from scipy.spatial import cKDTree
+
+    if len(points) == 0:
+        return float("nan")
+    surf = mesh.sample_points(n_sample, seed=0).points
+    return float(np.median(cKDTree(surf).query(points, workers=-1)[0]))
+
+
+def _capture_once(device, scene, small, plain):
+    """(a): refine_pose_with_icp from the annotated pose of frame 0, the
+    frame-0 ray trace, and an async capture on frame 2 seeded from the
+    annotated pose of frame 2 (a device tensor), timed twice: the process's
+    first capture, then a warm one."""
+    import numpy as np
+    import torch
+
+    from sixdof_tpu_torch.app.defect_projection import (compute_rays, heatmap_to_points,
+                                                       ray_tracing)
+    from sixdof_tpu_torch.app.icp_pipeline import (CaptureContext, capture_event_async,
+                                                   preprocess_source, refine_pose_with_icp)
+    from sixdof_tpu_torch.io.readers import DataReader
+
+    reader = DataReader(scene)
+    params = _icp_parameters(reader.parameters, small)
+    init = reader.color_to_depth @ reader.scale_translation_to_millimeters(reader.get_gt_pose(0))
+    _sync(device)
+    t0 = time.perf_counter()
+    _, icp, z_adj, target_processed = refine_pose_with_icp(
+        reader.get_source(0), reader.target, reader.background, init, params, device=device)
+    _sync(device)
+    icp_refine_s = time.perf_counter() - t0
+    posed = reader.target_mesh.copy()
+    posed.transform(np.linalg.inv(icp.transformation))
+    heatmap, _ = reader.get_heatmap()
+    t0 = time.perf_counter()
+    pcd0, posed_c = ray_tracing(reader.base_dir, posed, heatmap, reader.color_pinhole,
+                                heatmap_threshold=0.75, device=device, plain_raytrace=plain)
+    ray_tracing_ms = (time.perf_counter() - t0) * 1e3
+
+    ctx = CaptureContext(target_processed, reader.target_mesh, reader.color_to_depth,
+                         device=device, plain_raytrace=plain)
+    t0 = time.perf_counter()
+    src2, _, _ = preprocess_source(reader.get_source(2), reader.background, params, i=2)
+    preprocess_ms = (time.perf_counter() - t0) * 1e3
+    rays, inten = compute_rays(heatmap_to_points(heatmap, 0.75), reader.color_pinhole)
+    pose2 = torch.as_tensor(reader.get_gt_pose(2), dtype=torch.float32, device=device)
+    capture_ms = []  # the first capture of the process, then a warm one
+    for _ in range(2):
+        _sync(device)
+        t0 = time.perf_counter()
+        pending = capture_event_async(src2, pose2, np.eye(4), params, rays,
+                                      np.ones(len(rays), bool), inten, ctx)
+        res2, pcd2 = pending.result()
+        capture_ms.append((time.perf_counter() - t0) * 1e3)
+
+    # distances: to the mesh the defects were traced on, and to the mesh at
+    # the annotated pose (both in the colour camera, mm)
+    gt_posed = reader.target_mesh.copy()
+    gt_posed.transform(reader.scale_translation_to_millimeters(reader.get_gt_pose(0)))
+    cap_posed = reader.target_mesh.copy()
+    cap_posed.transform(np.linalg.inv(reader.color_to_depth)
+                        @ np.linalg.inv(res2.transformation))
+    gt2 = reader.target_mesh.copy()
+    gt2.transform(reader.scale_translation_to_millimeters(reader.get_gt_pose(2)))
+    return dict(
+        icp_refine_s=icp_refine_s, z_adjustment_mm=z_adj, refine_fitness=icp.fitness,
+        refine_rmse_mm=icp.inlier_rmse, ray_tracing_ms=ray_tracing_ms,
+        defect_points=len(pcd0),
+        defect_to_traced_mesh_median_mm=_surface_median_mm(pcd0.points, posed_c),
+        defect_to_annotated_mesh_median_mm=_surface_median_mm(pcd0.points, gt_posed),
+        preprocess_ms=preprocess_ms, capture_first_ms=capture_ms[0], capture_ms=capture_ms[1],
+        capture_fitness=res2.fitness,
+        capture_rmse_mm=res2.inlier_rmse, capture_defect_points=len(pcd2),
+        capture_defect_to_traced_mesh_median_mm=_surface_median_mm(pcd2.points, cap_posed),
+        capture_defect_to_annotated_mesh_median_mm=_surface_median_mm(pcd2.points, gt2),
+        _tfs=[icp.transformation, res2.transformation], _pts=[pcd0.points, pcd2.points])
+
+
+def _icp_parameters(params, small):
+    """The scene's ICP parameters; cut to a tiny size for the CPU rehearsal."""
+    if small:
+        params["preprocess_target"]["max_pcd"] = 1000
+        params["preprocess_source"]["down_sample"] = 8.0
+        params["run_icp"].update(n_restarts=4, max_iter=5)
+    return params
+
+
+def _scene_icp_parameters(small):
+    """Context in which every DataReader holds the ICP parameters of
+    _icp_parameters (the run loop builds its own reader)."""
+    import contextlib
+    from unittest import mock
+
+    from sixdof_tpu_torch.io.readers import DataReader
+
+    if not small:
+        return contextlib.nullcontext()
+    update_config = DataReader.update_config
+    return mock.patch.object(DataReader, "update_config",
+                             lambda self, args: _icp_parameters(update_config(self, args), small))
+
+
+def _loop_once(device, cfg, scene, small, refiner, scorer, plain):
+    """(b): the port's run loop with async captures; returns its numbers,
+    K2 launches counted over the run."""
+    from sixdof_tpu_torch.app import run as app_run
+    from sixdof_tpu_torch.kernels import raytrace as k2
+
+    n_frames = 3 if small else 6
+    argv = ["--test_scene_dir", scene, "--no_server", "--max_frames", str(n_frames),
+            "--capture_every", "2", "--track_pipeline", "3", "--debug", "0",
+            "--debug_dir", os.path.join(REPO, "build", "chip_smoke", "plain" if plain else "k2")]
+    if small:
+        argv += ["--shorter_side", str(cfg.shorter_side), "--max_hypotheses", "8",
+                 "--prune_to", str(cfg.prune_to), "--est_refine_iter", "1",
+                 "--track_refine_iter", "1"]
+    args = app_run.build_parser().parse_args(argv)
+    state = app_run.LoopState()
+    with _scene_icp_parameters(small):
+        _sync(device)
+        k2.ray_mesh_intersect.launches = 0
+        frame_times = app_run.main(args, device=device, refiner=refiner, scorer=scorer,
+                                   plain_raytrace=plain, state=state)
+        _sync(device)
+    launches = k2.ray_mesh_intersect.launches
+    return dict(frames=len(frame_times), frame_ms=[t * 1e3 for t in frame_times],
+                k2_launches=launches, stages=state.stages,
+                captures=[{"frame": f, "fitness": r.fitness, "rmse_mm": r.inlier_rmse}
+                          for f, r in state.captures],
+                defect_points=[len(p) for p in state.intersection_pcds],
+                _tfs=[r.transformation for _, r in state.captures],
+                _pts=[p.points for p in state.intersection_pcds])
+
+
+def _same(a, b):
+    """Max abs difference of two lists of arrays, inf where shapes differ."""
+    import numpy as np
+
+    err = 0.0
+    for x, y in zip(a, b):
+        if np.shape(x) != np.shape(y):
+            return float("inf")
+        if np.size(x):
+            err = max(err, float(np.abs(np.asarray(x) - np.asarray(y)).max()))
+    return err if len(a) == len(b) else float("inf")
+
+
+def phase_capture(device, cfg, scene, small, refiner, scorer):
+    """(a) and (b) through K2, then through its plain version."""
+    a = _capture_once(device, scene, small, plain=False)
+    b = _loop_once(device, cfg, scene, small, refiner, scorer, plain=False)
+    a_plain = _capture_once(device, scene, small, plain=True)
+    b_plain = _loop_once(device, cfg, scene, small, refiner, scorer, plain=True)
+    vs_plain = dict(
+        capture_tf_max_abs_diff=_same(a["_tfs"], a_plain["_tfs"]),
+        capture_pts_max_abs_diff_mm=_same(a["_pts"], a_plain["_pts"]),
+        capture_counts=[len(x) for x in a["_pts"]], plain_counts=[len(x) for x in a_plain["_pts"]],
+        loop_tf_max_abs_diff=_same(b["_tfs"], b_plain["_tfs"]),
+        loop_pts_max_abs_diff_mm=_same(b["_pts"], b_plain["_pts"]),
+        loop_counts=b["defect_points"], loop_plain_counts=b_plain["defect_points"])
+    strip = lambda d: {k: v for k, v in d.items() if not k.startswith("_")}  # noqa: E731
+    emit({"phase": "capture", "a": strip(a), "b": strip(b),
+          "plain_a": {k: a_plain[k] for k in ("icp_refine_s", "ray_tracing_ms", "capture_first_ms",
+                                              "capture_ms")},
+          "plain_b_frame_ms": b_plain["frame_ms"], "vs_plain": vs_plain})
+    expect_launches = 2 if small else 3
+    if min(a["refine_fitness"], a["capture_fitness"]) < CAPTURE_MIN_FITNESS:
+        raise RuntimeError(f"ICP from the annotated pose did not register: {strip(a)}")
+    if not (a["defect_points"] > 0 and a["capture_defect_points"] > 0
+            and a["defect_to_traced_mesh_median_mm"] < 1.0
+            and a["capture_defect_to_traced_mesh_median_mm"] < 1.0):
+        raise RuntimeError(f"no defect points on the posed mesh: {strip(a)}")
+    if device.type == "cuda" and b["k2_launches"] != expect_launches:
+        raise RuntimeError(f"the run loop launched K2 {b['k2_launches']} times, "
+                           f"expected {expect_launches}")
+    if len(b["captures"]) != expect_launches or min(b["defect_points"]) == 0:
+        raise RuntimeError(f"the run loop did not consume its captures: {strip(b)}")
+    if max(vs_plain["capture_tf_max_abs_diff"], vs_plain["loop_tf_max_abs_diff"]) \
+            > CAPTURE_TF_ATOL or max(vs_plain["capture_pts_max_abs_diff_mm"],
+                                     vs_plain["loop_pts_max_abs_diff_mm"]) > CAPTURE_PTS_ATOL:
+        raise RuntimeError(f"kernel and plain-K2 captures disagree: {vs_plain}")
+    return dict(loop_k2_launches=b["k2_launches"])
+
+
 def _rot_deg(R1, R2):
     """Rotation angle between R1 and R2 from the chord ||R1 - R2||_F
     (= 2 sqrt(2) sin(angle / 2)), stable near zero unlike the trace form."""
@@ -215,7 +496,8 @@ def run(device="cuda", small=False):
     from sixdof_tpu_torch.device import resolve_device
     from sixdof_tpu_torch.io.mesh_io import load_mesh
     from sixdof_tpu_torch.io.readers import DataReader
-    from sixdof_tpu_torch.kernels import raster
+    from sixdof_tpu_torch.kernels import raster, raytrace
+    from sixdof_tpu_torch.kernels.build import build_all
     from sixdof_tpu_torch.models.predict import PoseRefinePredictor, ScorePredictor
     from sixdof_tpu_torch.ops.geometry import compute_mesh_diameter
     from sixdof_tpu_torch.ops.hypotheses import make_rotation_grid
@@ -232,11 +514,12 @@ def run(device="cuda", small=False):
         emit({"phase": "device", "name": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count(), "torch": torch.__version__,
               "cuda": torch.version.cuda})
-        t0 = time.perf_counter()
-        raster.build()
-        emit({"phase": "build", "seconds": time.perf_counter() - t0,
-              "library": os.path.relpath(raster.build_info["library"], REPO),
-              "ptxas": raster.build_info["ptxas"].strip().splitlines()[-2:]})
+        seconds = build_all([raster.LIBRARY, raytrace.LIBRARY])
+        emit({"phase": "build", "seconds": seconds,
+              "libraries": {lib.name: {"library": os.path.relpath(lib.info["library"], REPO),
+                                       "seconds": lib.info["seconds"],
+                                       "ptxas": lib.info["ptxas"].strip().splitlines()[-2:]}
+                            for lib in (raster.LIBRARY, raytrace.LIBRARY)}})
 
     cfg = PipelineConfig()
     if small:
@@ -280,6 +563,10 @@ def run(device="cuda", small=False):
                            f"rot {rot} deg, trans {trans} m, top score "
                            f"{kern['top_score']} vs {plain['top_score']}")
 
+    # K2 at the capture's shapes, then the capture path and the run loop
+    k2 = phase_k2(dev, scene, small, n_time=2 if small else 50)
+    cap = phase_capture(dev, cfg, scene, small, refiner, scorer)
+
     main_shape = k1[0]
     kernels = [{
         "name": "raster_zbuffer", "route": "cuda",
@@ -290,6 +577,16 @@ def run(device="cuda", small=False):
         "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"], "bound_by": main_shape["bound_by"],
         "library_ms": None,
+        "check": "passed",
+    }, {
+        "name": "ray_mesh_intersect", "route": "cuda",
+        "source": "sixdof_tpu_torch/csrc/ray_mesh.cu",
+        "replaces": "sixdof_tpu/ops/pallas/raytrace_kernel.py:85",
+        "launches": cap["loop_k2_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in k2),
+        "ms": k2[0]["ms"], "plain_ms": k2[0]["plain_ms"],
+        "bound_ms": k2[0]["bound_ms"], "bound_by": k2[0]["bound_by"],
+        "library_ms": None,  # no PyTorch call computes a ray-triangle first hit
         "check": "passed",
     }]
     emit({"kernels": kernels})

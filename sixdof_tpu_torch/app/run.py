@@ -1,0 +1,324 @@
+"""Application loop: pose registration + tracking + ICP + defect projection.
+
+Port of `sixdof_tpu/app/run.py` with the viewer off (its `--no_server`
+path), on one device:
+
+- frame 0: register -> mm scale + extrinsic compose -> refine_pose_with_icp
+  -> ray_tracing of the defect heatmap onto the ICP-posed mesh;
+- later frames: track_one; every `--capture_every` frames a capture event
+  (restart ICP + defect ray trace in one device program).  With
+  `--debug 0` and `--track_pipeline > 0` the pose chain stays on the
+  device: tracked poses are read back `track_pipeline` frames late, capture
+  events are dispatched from the device pose (capture_event_async) and
+  consumed four frames later; otherwise every frame syncs and captures run
+  synchronously (capture_event).  Poses go to `{debug_dir}/ob_in_cam/`.
+
+What the viewer would show (the accumulated defect clouds in the depth
+camera's frame and the posed mesh) is kept on a `LoopState` the caller may
+pass.  Not ported: the Dash viewer, the overlay images and debug drawing,
+the `--icp` global-registration path, the live Kinect reader and the TPU
+compile-hiding threads.  The networks are built from a seed (the bundled
+checkpoints are orbax files the port does not read).
+"""
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+import time
+from collections import deque
+from dataclasses import dataclass, field
+
+import numpy as np
+
+from ..config import PipelineConfig
+from ..device import resolve_device
+from ..estimater import FoundationPose
+from ..io.mesh_io import TriMesh, load_mesh
+from ..io.readers import DataReader
+from ..models.predict import PoseRefinePredictor, ScorePredictor
+from ..utils.profiling import StageTimer, set_seed
+from .defect_projection import compute_rays, heatmap_to_points, ray_tracing
+from .icp_pipeline import (CaptureContext, capture_event, capture_event_async,
+                           preprocess_source, refine_pose_with_icp)
+
+HEATMAP_THRESHOLD = 0.75
+
+
+def transform_object(pcd_or_mesh, transformation):
+    out = pcd_or_mesh.copy()
+    out.transform(transformation)
+    return out
+
+
+def oriented_bounds(mesh):
+    """PCA oriented bounding box (trimesh.bounds.oriented_bounds
+    equivalent): returns (to_origin 4x4, extents 3)."""
+    pts = np.asarray(mesh.vertices)
+    c = pts.mean(axis=0)
+    q = pts - c
+    _, vecs = np.linalg.eigh(q.T @ q)
+    R = vecs[:, ::-1].T  # rows = principal axes, major first
+    if np.linalg.det(R) < 0:
+        R[2] *= -1
+    local = q @ R.T
+    mn, mx = local.min(axis=0), local.max(axis=0)
+    to_origin = np.eye(4)
+    to_origin[:3, :3] = R
+    to_origin[:3, 3] = -(R @ c) - (mn + mx) / 2
+    return to_origin, mx - mn
+
+
+@dataclass
+class LoopState:
+    """What the viewer would show, updated where the JAX app calls
+    `update_dash_data`: the accumulated defect clouds (depth camera, mm),
+    the mesh posed by the latest ICP result, and the frame and registration
+    result of frame 0's ICP refinement and of each capture; and the loop's
+    per-stage host wall times."""
+
+    intersection_pcds: list = field(default_factory=list)
+    target_mesh: TriMesh = None
+    captures: list = field(default_factory=list)  # (frame, RegistrationResult)
+    stages: dict = field(default_factory=dict)  # StageTimer.summary() at the end
+
+    def update(self, intersection_pcds, target_mesh):
+        self.intersection_pcds = intersection_pcds
+        self.target_mesh = target_mesh
+
+
+def main(args, device=None, refiner=None, scorer=None, plain_raytrace=False, state=None):
+    """Run the loop over the scene's frames; returns the per-frame wall times
+    (seconds).  @device: None = the card (or `args.device`); @refiner/@scorer:
+    predictors to use instead of seeded ones; @plain_raytrace: K2's plain
+    version (a comparison run); @state: a LoopState to fill."""
+    dev = resolve_device(device or getattr(args, "device", None))
+    state = state if state is not None else LoopState()
+    if not getattr(args, "no_server", True):
+        logging.warning("the viewer is not ported: running headless")
+    mesh = load_mesh(getattr(args, "mesh_file", None)
+                     or f"{args.test_scene_dir}/mesh/model_scaled_down.obj")
+    debug = args.debug
+    debug_dir = args.debug_dir
+    os.makedirs(f"{debug_dir}/ob_in_cam", exist_ok=True)
+
+    refiner = refiner if refiner is not None else PoseRefinePredictor(dev, seed=0)
+    scorer = scorer if scorer is not None else ScorePredictor(dev, seed=1)
+    est = FoundationPose(model_pts=mesh.vertices, model_normals=mesh.vertex_normals, mesh=mesh,
+                         scorer=scorer, refiner=refiner, device=dev,
+                         prune_to=args.prune_to or None)
+    if args.max_hypotheses and len(est.rot_grid) > args.max_hypotheses:
+        step = len(est.rot_grid) // args.max_hypotheses
+        est.rot_grid = est.rot_grid[::step][: args.max_hypotheses]
+        logging.info(f"rotation grid capped to {len(est.rot_grid)} hypotheses")
+    logging.info("Estimator initialization done")
+    reader = DataReader(args.test_scene_dir, shorter_side=args.shorter_side, zfar=np.inf,
+                        arguments=args)
+
+    intersection_pcds = []
+    frame_times = []
+    pending_poses = deque()  # (frame, PendingPose) awaiting host readback
+    pending_captures = deque()  # (frame, PendingPose, PendingCapture)
+    timer = StageTimer()
+    previous_transformation = np.eye(4)
+    delta_pose = np.eye(4)
+    current_transformation = np.eye(4)
+    target_mesh_copy = None
+    capture_ctx = None
+
+    def drain_pending(keep_frame=None, leave=0):
+        """Write queued async poses to ob_in_cam in frame order, down to
+        @leave entries; a queued pose for @keep_frame is returned instead."""
+        kept = None
+        while len(pending_poses) > leave:
+            j, h = pending_poses.popleft()
+            if j == keep_frame:
+                kept = h.numpy()
+            else:
+                np.savetxt(f"{debug_dir}/ob_in_cam/{j:04d}.txt", h.numpy())
+        return kept
+
+    def to_initial_tf(pose):
+        """FoundationPose metres/colour camera -> ICP millimetres/depth camera."""
+        return np.dot(reader.color_to_depth, reader.scale_translation_to_millimeters(pose))
+
+    def consume_capture(frame, initial_transformation, current_result, new_pcd):
+        """Fold one capture's result into the loop state (the JAX app's
+        capture branch and drain_captures share this)."""
+        nonlocal previous_transformation, delta_pose, current_transformation, \
+            target_mesh_copy
+        current_transformation = current_result.transformation
+        delta_pose = np.linalg.inv(initial_transformation) @ np.linalg.inv(
+            current_transformation)
+        target_mesh_copy = transform_object(reader.target_mesh,
+                                            np.linalg.inv(current_transformation))
+        relative_transformation = np.linalg.inv(current_transformation) @ previous_transformation
+        for pcd in intersection_pcds:
+            pcd.transform(relative_transformation)
+        new_pcd.transform(reader.color_to_depth)
+        intersection_pcds.append(new_pcd)
+        previous_transformation = current_transformation
+        state.captures.append((frame, current_result))
+        state.update(intersection_pcds, target_mesh_copy)
+
+    def drain_captures(now=None):
+        """Consume finished async capture events in frame order; entries
+        younger than 4 frames stay in flight unless @now is None."""
+        while pending_captures:
+            if now is not None and now - pending_captures[0][0] < 4:
+                break
+            j, pp, pcap = pending_captures.popleft()
+            current_result, new_pcd = pcap.result()
+            consume_capture(j, to_initial_tf(pp.numpy()), current_result, new_pcd)
+
+    heatmap, _ = reader.get_heatmap()
+    max_frames = min(args.max_frames or len(reader), len(reader))
+    pipeline_depth = args.track_pipeline
+    async_mode = debug < 1 and pipeline_depth > 0
+    i = 0
+    while i < max_frames:
+        logging.info(f"i: {i}")
+        t0 = time.perf_counter()
+        with timer.stage("read"):  # PNG decode on the host
+            color = reader.get_color(i)
+            depth = reader.get_depth(i)
+        if i == 0:
+            mask = reader.get_mask(color, i).astype(bool)
+            with timer.stage("register"):
+                pose = est.register(K=reader.color_K, rgb=color, depth=depth, ob_mask=mask,
+                                    iteration=args.est_refine_iter)
+            initial_transformation = to_initial_tf(pose)
+            with timer.stage("icp_refine"):
+                _, initial_icp_result, _, target_processed = refine_pose_with_icp(
+                    reader.get_source(i), reader.target, reader.background,
+                    initial_transformation, reader.parameters, device=dev)
+            delta_pose = np.linalg.inv(initial_transformation) @ np.linalg.inv(
+                initial_icp_result.transformation)
+            current_transformation = initial_icp_result.transformation
+            capture_ctx = CaptureContext(target_processed, reader.target_mesh,
+                                         reader.color_to_depth, device=dev,
+                                         plain_raytrace=plain_raytrace)
+            target_mesh_copy = transform_object(
+                reader.target_mesh, np.linalg.inv(initial_icp_result.transformation))
+            with timer.stage("ray_tracing"):
+                defect_pcd, _ = ray_tracing(reader.base_dir, target_mesh_copy, heatmap,
+                                            reader.color_pinhole,
+                                            heatmap_threshold=HEATMAP_THRESHOLD, device=dev,
+                                            plain_raytrace=plain_raytrace)
+            defect_pcd.transform(reader.color_to_depth)
+            intersection_pcds.append(defect_pcd)
+            previous_transformation = initial_icp_result.transformation
+            state.captures.append((0, initial_icp_result))
+            state.update(intersection_pcds, target_mesh_copy)
+        else:
+            with timer.stage("track"):
+                out = est.track_one(rgb=color, depth=depth, K=reader.color_K,
+                                    iteration=args.track_refine_iter, sync=not async_mode)
+            drain_captures(now=i)
+            if async_mode:
+                pending_poses.append((i, out))
+                drain_pending(leave=pipeline_depth)
+                pose = None  # the dead-reckoning pose has no consumer until
+                # the next capture resolves
+            else:
+                drain_pending()
+                pose = out
+                initial_transformation = to_initial_tf(pose)
+
+            if args.capture_every and i % args.capture_every == 0:
+                heatmap, _ = reader.get_heatmap()
+                with timer.stage("capture"):
+                    source_processed, _, _ = preprocess_source(
+                        reader.get_source(i), reader.background, reader.parameters, i=i)
+                    pix = heatmap_to_points(heatmap, HEATMAP_THRESHOLD)
+                    if pix:
+                        rays, intensities = compute_rays(pix, reader.color_pinhole)
+                        ray_mask = np.ones(len(rays), dtype=bool)
+                    else:
+                        # one placeholder ray, masked out: no defect point
+                        rays = np.array([[0.0, 0.0, 1.0]])
+                        intensities = np.zeros(1)
+                        ray_mask = np.zeros(1, dtype=bool)
+                    if async_mode:
+                        pcap = capture_event_async(
+                            source_processed, out.device_pose(),
+                            est.get_tf_to_centered_mesh(), reader.parameters,
+                            rays, ray_mask, intensities, ctx=capture_ctx)
+                        pending_captures.append((i, out, pcap))
+                    else:
+                        current_result, new_pcd = capture_event(
+                            source_processed, target_processed, initial_transformation,
+                            reader.parameters, reader.target_mesh, rays, ray_mask,
+                            intensities, reader.color_to_depth, ctx=capture_ctx)
+                        consume_capture(i, initial_transformation, current_result, new_pcd)
+            elif pose is not None:
+                current_transformation = np.linalg.inv(initial_transformation @ delta_pose)
+
+        if pose is not None:
+            np.savetxt(f"{debug_dir}/ob_in_cam/{i:04d}.txt", pose.reshape(4, 4))
+        frame_times.append(time.perf_counter() - t0)
+        i += 1
+
+    drain_captures()  # consume any in-flight capture event
+    drain_pending()  # drain the readback pipeline
+    timer.log()
+    state.stages = timer.summary()
+    if frame_times:
+        fps = 1.0 / np.mean(frame_times[1:]) if len(frame_times) > 1 else 1.0 / frame_times[0]
+        logging.info(f"frames: {len(frame_times)}  mean FPS (excl. frame 0): {fps:.2f}")
+    return frame_times
+
+
+def build_parser():
+    """The JAX app's CLI, less what the port does not run; defaults come
+    from `PipelineConfig`."""
+    pc = PipelineConfig()
+
+    def str2bool(v):
+        if isinstance(v, bool) or v is None:
+            return v
+        if v.lower() in ("1", "true", "yes", "y", "on"):
+            return True
+        if v.lower() in ("0", "false", "no", "n", "off"):
+            return False
+        raise argparse.ArgumentTypeError(f"expected a boolean, got {v!r}")
+
+    parser = argparse.ArgumentParser()
+    code_dir = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    parser.add_argument("--mesh_file", type=str, default=None,
+                        help="CAD mesh override (default: "
+                             "{test_scene_dir}/mesh/model_scaled_down.obj)")
+    parser.add_argument("--test_scene_dir", type=str, default=f"{code_dir}/{pc.test_scene_dir}")
+    parser.add_argument("--est_refine_iter", type=int, default=pc.est_refine_iter)
+    parser.add_argument("--track_refine_iter", type=int, default=pc.track_refine_iter)
+    parser.add_argument("--debug", type=int, default=pc.debug,
+                        help="0 with --track_pipeline > 0: poses stay on the device and "
+                             "captures run asynchronously; >= 1: every frame syncs")
+    parser.add_argument("--debug_dir", type=str, default=f"{code_dir}/debug")
+    parser.add_argument("--shorter_side", type=int, default=pc.shorter_side)
+    parser.add_argument("--box", type=str2bool, default=None)
+    parser.add_argument("--mesh", type=str2bool, default=None)
+    parser.add_argument("--voxel_size", type=float, default=None)
+    parser.add_argument("--max_frames", type=int, default=pc.max_frames)
+    parser.add_argument("--capture_every", type=int, default=pc.capture_every,
+                        help="trigger a defect capture every N frames")
+    parser.add_argument("--no_server", action="store_true",
+                        help="no viewer (the port has none; accepted for the JAX app's "
+                             "command line)")
+    parser.add_argument("--prune_to", type=int, default=pc.prune_to,
+                        help="keep this many hypotheses after 2 coarse iterations "
+                             "(0 = the full grid for all iterations)")
+    parser.add_argument("--max_hypotheses", type=int, default=None,
+                        help="cap the rotation grid")
+    parser.add_argument("--track_pipeline", type=int, default=pc.track_pipeline,
+                        help="tracked-pose readback pipeline depth (0 = sync every frame)")
+    parser.add_argument("--device", type=str, default=None,
+                        help="torch device (default: the CUDA card; 'cpu' on request)")
+    return parser
+
+
+def cli(argv=None):
+    logging.basicConfig(level=logging.INFO, format="[%(funcName)s()] %(message)s")
+    args = build_parser().parse_args(argv)
+    set_seed(0)
+    return main(args)

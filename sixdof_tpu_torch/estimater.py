@@ -34,13 +34,16 @@ from .ops.rasterize import make_mesh_arrays
 class PendingPose:
     """Handle for an in-flight tracked pose (track_one(sync=False)).
 
-    On the card the pose is copied to pinned host memory without blocking,
-    and a CUDA event marks the copy; `.numpy()` waits on that event only and
-    returns the 4x4 in the original-mesh frame (the sync return value)."""
+    The device pose stays referenced (`device_pose()`, what a capture event
+    seeds from without a host sync).  On the card it is also copied to
+    pinned host memory without blocking, and a CUDA event marks the copy;
+    `.numpy()` waits on that event only and returns the 4x4 in the
+    original-mesh frame (the sync return value)."""
 
-    __slots__ = ("_host", "_event", "_tf", "_np")
+    __slots__ = ("_dev", "_host", "_event", "_tf", "_np")
 
     def __init__(self, dev_pose, tf_to_centered_mesh):
+        self._dev = dev_pose
         if dev_pose.is_cuda:
             self._host = torch.empty(dev_pose.shape, dtype=dev_pose.dtype, pin_memory=True)
             self._host.copy_(dev_pose, non_blocking=True)
@@ -51,6 +54,10 @@ class PendingPose:
             self._event = None
         self._tf = tf_to_centered_mesh
         self._np = None
+
+    def device_pose(self):
+        """The (1,4,4) float32 pose tensor of the centred mesh, on the device."""
+        return self._dev
 
     def centered(self):
         """The host 4x4 in the centred-mesh frame (waits for the copy only)."""

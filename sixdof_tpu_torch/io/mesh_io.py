@@ -1,7 +1,7 @@
 """Triangle-mesh and point-cloud containers + OBJ/PLY loading.
 
-Port of `sixdof_tpu/io/mesh_io.py` (the loaders and containers the pose path
-uses), numpy only.  Vertex-coloured meshes only: an OBJ whose material names
+Port of `sixdof_tpu/io/mesh_io.py` (the loaders and containers the pose and
+capture paths use), numpy only.  Vertex-coloured meshes only: an OBJ whose material names
 a texture raises NotImplementedError until textured meshes are ported.
 """
 from __future__ import annotations
@@ -39,6 +39,30 @@ class PointCloud:
             None if self.colors is None else self.colors.copy(),
             None if self.normals is None else self.normals.copy(),
         )
+
+    def transform(self, tf):
+        """In-place homogeneous transform (Open3D semantics)."""
+        tf = np.asarray(tf)
+        self.points = self.points @ tf[:3, :3].T + tf[:3, 3]
+        if self.normals is not None:
+            self.normals = self.normals @ tf[:3, :3].T
+        return self
+
+    def paint_uniform_color(self, color):
+        self.colors = np.tile(np.asarray(color, dtype=np.float64)[None], (len(self.points), 1))
+        return self
+
+    def select_by_index(self, idx, invert=False):
+        mask = np.zeros(len(self.points), dtype=bool)
+        mask[np.asarray(idx, dtype=np.int64)] = True
+        if invert:
+            mask = ~mask
+        return PointCloud(
+            self.points[mask],
+            None if self.colors is None else self.colors[mask],
+            None if self.normals is None else self.normals[mask],
+        )
+
 
 @dataclass
 class TriMesh:
@@ -84,6 +108,21 @@ class TriMesh:
             norm = np.linalg.norm(vn, axis=-1, keepdims=True)
             self._vertex_normals = vn / np.clip(norm, 1e-12, None)
         return self._vertex_normals
+
+    def compute_vertex_normals(self):
+        _ = self.vertex_normals
+        return self
+
+    def apply_transform(self, tf):
+        tf = np.asarray(tf)
+        self.vertices = self.vertices @ tf[:3, :3].T + tf[:3, 3]
+        self._vertex_normals = None
+        return self
+
+    transform = apply_transform  # Open3D-compatible alias
+
+    def bounds(self):
+        return np.stack([self.vertices.min(axis=0), self.vertices.max(axis=0)])
 
     def sample_points(self, n, seed=0):
         """Area-weighted uniform surface sampling -> PointCloud with normals."""

@@ -1,16 +1,20 @@
 """Offline demo-scene reader.
 
-Port of `sixdof_tpu/io/readers.py::DataReader`, the pose path's part: the
-colour intrinsics, colour/depth frames, the first-frame mask and the
-annotated poses of a scene laid out as
+Port of `sixdof_tpu/io/readers.py::DataReader`: the colour intrinsics,
+colour/depth frames, the first-frame mask and the annotated poses (the pose
+path), and the per-scene ICP parameters, camera extrinsics, scene clouds,
+CAD mesh and defect heatmap (the capture path), of a scene laid out as
 
-  configs/camera_intrinsics.json  rgb/rgb_*.png  depth/depth_*.png (mm uint16)
-  masks/0000.png  annotated_poses/*.txt
+  configs/{camera_intrinsics,camera_extrinsics,icp_parameters}.json
+  rgb/rgb_*.png  depth/depth_*.png (mm uint16)  pcd/cloud_*.ply
+  masks/0000.png  annotated_poses/*.txt  background/box.ply
+  mesh/{model.obj, model.ply}  heatmap/0002.npy
 
-PNG decoding is `io/png.py` and resizing reimplements OpenCV's
-``INTER_NEAREST`` index rule, so no OpenCV is needed.  The Otsu auto-mask
-(used by the JAX reader when masks/0000.png is missing), the ICP sources and
-the heatmap belong to the capture slice and are not ported yet.
+PNG decoding is `io/png.py`, and resizing reimplements OpenCV's
+``INTER_NEAREST`` and ``INTER_LINEAR`` rules, so no OpenCV is needed.  The
+Otsu auto-mask (used by the JAX reader when masks/0000.png is missing), the
+colour crop that `get_heatmap` returns for the viewer's overlay, and the
+live Kinect reader are not ported.
 """
 from __future__ import annotations
 
@@ -20,6 +24,9 @@ import os
 
 import numpy as np
 
+from ..app.defect_projection import PinholeCameraIntrinsic, load_extrinsics
+from ..config import IcpConfig
+from .mesh_io import load_mesh, load_point_cloud
 from .png import read_png
 
 
@@ -36,12 +43,40 @@ def resize_nearest(img, width, height):
     return img[ys[:, None], xs[None, :]]
 
 
+def _linear_taps(dst, src):
+    """OpenCV's INTER_LINEAR source taps and float32 weights for one axis:
+    f = (d + 0.5) * (1 / (dst / src)) - 0.5 in float64, s = floor(f), weight
+    float32(f - s) on s + 1 and 1 - that on s, clamped to the border with
+    weight 0."""
+    f = (np.arange(dst) + 0.5) * (1.0 / (dst / src)) - 0.5
+    s = np.floor(f).astype(np.int64)
+    frac = (f - s).astype(np.float32)
+    frac[(s < 0) | (s >= src - 1)] = 0.0
+    s = np.clip(s, 0, src - 1)
+    return s, np.minimum(s + 1, src - 1), np.float32(1.0) - frac, frac
+
+
+def resize_linear(img, width, height):
+    """``cv2.resize(img, (width, height), interpolation=cv2.INTER_LINEAR)`` of
+    a float32 (H,W) image: half-pixel centres, clamped border, a horizontal
+    then a vertical pass in float32.  A same-size call is a copy."""
+    H, W = img.shape[:2]
+    if (H, W) == (height, width):
+        return img.copy()
+    img = np.asarray(img, dtype=np.float32)
+    x0, x1, a0, a1 = _linear_taps(width, W)
+    y0, y1, b0, b1 = _linear_taps(height, H)
+    rows = img[:, x0] * a0 + img[:, x1] * a1
+    return rows[y0] * b0[:, None] + rows[y1] * b1[:, None]
+
+
 class DataReader:
     """Offline demo-data replay (reference datareader.py:508-792)."""
 
-    def __init__(self, base_dir, shorter_side=None, zfar=np.inf):
+    def __init__(self, base_dir, shorter_side=None, zfar=np.inf, arguments=None):
         self.base_dir = base_dir
         self.zfar = zfar
+        self.parameters = self.update_config(arguments)
         self.color_files = sorted(glob.glob(f"{self.base_dir}/rgb/*.png"))
         if not self.color_files:
             raise FileNotFoundError(f"no colour frames under {self.base_dir}/rgb")
@@ -49,6 +84,10 @@ class DataReader:
             intr = json.load(f)["color"]
         self.color_K = np.array([[intr["fx"], 0, intr["cx"]], [0, intr["fy"], intr["cy"]],
                                  [0, 0, 1]], dtype=np.float64)
+        # the defect rays use the colour camera at its native size
+        self.color_pinhole = PinholeCameraIntrinsic.from_params(
+            intr["width"], intr["height"], intr["fx"], intr["fy"], intr["cx"], intr["cy"])
+        self.get_extrinsics()
         self.id_strs = [os.path.basename(f).replace(".png", "") for f in self.color_files]
         self.color_H, self.color_W = read_png(self.color_files[0]).shape[:2]
         depth_H, depth_W = read_png(self._depth_path(self.color_files[0])).shape[:2]
@@ -59,6 +98,8 @@ class DataReader:
         self.color_W = int(self.color_W * self.downscale)
         self.color_K[:2] *= self.downscale
         self.gt_pose_files = sorted(glob.glob(f"{self.base_dir}/annotated_poses/*"))
+        self.get_background()
+        self.get_target()
 
     def __len__(self):
         return len(self.color_files)
@@ -103,3 +144,71 @@ class DataReader:
                     mask = mask[..., c]
                     break
         return resize_nearest(mask, self.color_W, self.color_H).astype(bool).astype(np.uint8)
+
+    # ------------------------------------------------ capture-path inputs --
+
+    def update_config(self, args):
+        """icp_parameters.json with the CLI overrides applied (CLI > JSON >
+        defaults); keeps the typed form in `icp_config` and returns the
+        nested dict the pipeline functions read."""
+        cfg = self.get_icp_config()
+        if args is not None:
+            cfg = cfg.apply_cli_overrides(args)
+        self.icp_config = cfg
+        return cfg.to_reference_dict()
+
+    def get_icp_config(self):
+        path = f"{self.base_dir}/configs/icp_parameters.json"
+        if os.path.exists(path):
+            return IcpConfig.from_json(path)
+        return IcpConfig()
+
+    def get_parameters(self):
+        with open(f"{self.base_dir}/configs/icp_parameters.json", "r") as f:
+            return json.load(f)
+
+    def get_extrinsics(self):
+        self.color_to_depth, self.depth_to_color = load_extrinsics(self.base_dir)
+        self.inverse_color_to_depth = np.linalg.inv(self.color_to_depth)
+        self.inverse_depth_to_color = np.linalg.inv(self.depth_to_color)
+
+    def get_background(self):
+        self.background = load_point_cloud(f"{self.base_dir}/background/box.ply")
+
+    def get_target(self):
+        """The CAD mesh in millimetres (`target_mesh`, ray-traced) and its
+        point cloud (`target`, the ICP target)."""
+        self.target_mesh = load_mesh(f"{self.base_dir}/mesh/model.obj")
+        self.target_mesh.compute_vertex_normals()
+        self.target = load_point_cloud(f"{self.base_dir}/mesh/model.ply")
+
+    def get_source(self, i=0):
+        """The scene cloud of frame i (pcd/cloud_*.ply, depth camera, mm)."""
+        pcd_path = (self.color_files[i].replace("/rgb/", "/pcd/").replace(".png", ".ply")
+                    .replace("/rgb_", "/cloud_"))
+        return load_point_cloud(pcd_path)
+
+    @staticmethod
+    def scale_translation_to_millimeters(pose):
+        out = pose.copy()
+        out[:3, -1] *= 1000
+        return out
+
+    def get_heatmap(self):
+        """heatmap/0002.npy normalised to [0,1] in float32, resized to the
+        colour frame's shorter native side (OpenCV's INTER_LINEAR) and
+        centred on a float64 canvas of the native colour size.
+        Returns (heatmap_full (H0,W0) float64, heatmap_vis float32)."""
+        heatmap = np.load(f"{self.base_dir}/heatmap/0002.npy")
+        heatmap = heatmap - np.min(heatmap)
+        heatmap = heatmap / np.max(heatmap)
+        H0 = int(self.color_H / self.downscale)
+        W0 = int(self.color_W / self.downscale)
+        output_size = min(H0, W0)
+        heatmap_vis = resize_linear(heatmap, output_size, output_size)
+        heatmap_full = np.zeros((H0, W0))
+        y_start = (H0 - output_size) // 2
+        x_start = (W0 - output_size) // 2
+        heatmap_full[y_start : y_start + output_size,
+                     x_start : x_start + output_size] = heatmap_vis
+        return heatmap_full, heatmap_vis

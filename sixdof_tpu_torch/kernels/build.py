@@ -1,0 +1,90 @@
+"""Build and load the hand-written CUDA kernels.
+
+Each kernel source in `csrc/` has a plain C interface.  `KernelLibrary`
+compiles it with `nvcc` for `sm_90a` on first use into `build/kernels/`
+under the repository root (git-ignored), names the library by a hash of
+the source and the flags, and loads it with ctypes: no PyTorch headers and
+no ninja, so a build takes seconds.  Nothing is built at import.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+
+def nvcc():
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels are built on a machine with the "
+                           "CUDA toolkit")
+    return path
+
+
+class KernelLibrary:
+    """One `csrc/<name>.cu` source, built and loaded at the first `load()`.
+
+    @bind: sets the argtypes/restype of the library's C functions.
+    `info` holds the library path, the build seconds and nvcc's
+    `-Xptxas -v` report once loaded."""
+
+    def __init__(self, name, bind):
+        self.name = name
+        self.source = os.path.join(CSRC, f"{name}.cu")
+        self._bind = bind
+        self.lib = None
+        self.info = {}
+
+    def compile(self):
+        """Start nvcc on the source unless its library exists; returns the
+        running process (or None) and the library path, so several sources
+        can compile at once."""
+        with open(self.source, "rb") as f:
+            digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        so = os.path.join(BUILD_DIR, f"lib{self.name}_{digest}.so")
+        if os.path.exists(so):
+            return None, so
+        tmp = f"{so}.{os.getpid()}.tmp"
+        proc = subprocess.Popen([nvcc(), *NVCC_FLAGS, "-o", tmp, self.source],
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        proc.tmp = tmp
+        return proc, so
+
+    def load(self, pending=None):
+        """The loaded ctypes library, building it first if needed.
+        @pending: what `compile()` returned, when the caller started it."""
+        if self.lib is not None:
+            return self.lib
+        t0 = time.perf_counter()
+        proc, so = pending if pending is not None else self.compile()
+        log = ""
+        if proc is not None:
+            _, log = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {self.source}:\n{log}")
+            os.replace(proc.tmp, so)
+        lib = ctypes.CDLL(so)
+        self._bind(lib)
+        self.info.update(library=so, seconds=time.perf_counter() - t0, ptxas=log)
+        self.lib = lib
+        return lib
+
+
+def build_all(libraries):
+    """Compile every library at once (one nvcc each, started together) and
+    load them; returns the wall seconds."""
+    t0 = time.perf_counter()
+    pending = [(lib, lib.compile()) for lib in libraries if lib.lib is None]
+    for lib, p in pending:
+        lib.load(p)
+    return time.perf_counter() - t0

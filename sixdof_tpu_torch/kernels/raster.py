@@ -6,68 +6,28 @@ Replaces `sixdof_tpu/ops/pallas/raster_kernel.py::rasterize_zbuffer_pallas`
 
 `rasterize_zbuffer` dispatches on the tensor's device: a CPU tensor takes
 `rasterize_zbuffer_plain`; a CUDA tensor launches the kernel or raises.
-The library is compiled with `nvcc` on first use into `build/kernels/`
-under the repository root, named by a hash of the source, and bound with
-ctypes (no PyTorch headers, no ninja).
+The library is built on first use by `kernels/build.py`.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 
 import torch
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "raster_zbuffer.cu")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
-              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+from .build import KernelLibrary
 
 # plain version's chunking: (POSE_CHUNK, TRI_CHUNK, 4, H*W) temporaries
 POSE_CHUNK, TRI_CHUNK = 8, 32
 
-_lib = None
-build_info = {}  # filled by build(): library path, seconds, nvcc's -Xptxas -v report
 
-
-def _nvcc():
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the raster kernel is built on a machine with the "
-                           "CUDA toolkit")
-    return path
-
-
-def build():
-    """Compile csrc/raster_zbuffer.cu (if its hash-named library is not built
-    yet) and load it.  Returns the ctypes library."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    so = os.path.join(BUILD_DIR, f"libraster_zbuffer_{digest}.so")
-    t0 = time.perf_counter()
-    log = ""
-    if not os.path.exists(so):
-        tmp = f"{so}.{os.getpid()}.tmp"
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stderr}")
-        os.replace(tmp, so)
-        log = proc.stderr
-    lib = ctypes.CDLL(so)
+def _bind(lib):
     lib.raster_zbuffer.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     lib.raster_zbuffer.restype = ctypes.c_int
-    build_info.update(library=so, seconds=time.perf_counter() - t0, ptxas=log)
-    _lib = lib
-    return lib
+
+
+LIBRARY = KernelLibrary("raster_zbuffer", _bind)
+build = LIBRARY.load
+build_info = LIBRARY.info  # library path, seconds, nvcc's -Xptxas -v report
 
 
 def rasterize_zbuffer_plain(coef, counts, H, W):

@@ -1,6 +1,7 @@
 """chip_smoke.py rehearsed on the CPU at a tiny size: every phase runs (K1
-through its plain version, the pose server twice) and the kernels line has
-the keys the card run reports."""
+and K2 through their plain versions, the pose server twice, the capture
+path and the run loop twice) and the kernels line has the keys the card run
+reports."""
 import json
 import os
 import sys
@@ -24,11 +25,23 @@ def test_chip_smoke_rehearsal_on_cpu(capsys):
     lines = [json.loads(x) for x in capsys.readouterr().out.splitlines() if x.startswith("{")]
     phases = [x.get("phase") for x in lines]
     assert phases.count("k1") == 2 and "pose" in phases
+    assert phases.count("k2") == 3 and "capture" in phases
     assert lines[-1] == {"kernels": kernels}
-    (k,) = kernels
-    assert KEYS <= set(k) and k["route"] == "cuda" and k["bound_by"] in ("bytes", "operations")
-    assert os.path.exists(os.path.join(REPO, k["source"]))
-    path, line = k["replaces"].split(":")
-    assert "pallas_call" in open(os.path.join(REPO, path)).read().splitlines()[int(line) - 1]
+    assert [k["name"] for k in kernels] == ["raster_zbuffer", "ray_mesh_intersect"]
+    for k in kernels:
+        assert KEYS <= set(k) and k["route"] == "cuda" and k["bound_by"] in ("bytes",
+                                                                             "operations")
+        assert os.path.exists(os.path.join(REPO, k["source"]))
+        path, line = k["replaces"].split(":")
+        assert "pallas_call" in open(os.path.join(REPO, path)).read().splitlines()[int(line) - 1]
+        assert k["max_abs_err"] == 0.0 and k["library_ms"] is None
     pose = next(x for x in lines if x.get("phase") == "pose")
     assert len(pose["adds_m"]) == 3 and max(pose["vs_plain_rot_deg"]) == 0.0
+    k2 = [x for x in lines if x.get("phase") == "k2"]
+    assert [x["shape"] for x in k2] == ["heatmap", "max_defect_rays", "full_frame"]
+    assert k2[0]["rays"] == 587 and k2[0]["triangles"] == 1280
+    assert all(x["hits_equal"] and x["hits"] > 0 for x in k2)
+    cap = next(x for x in lines if x.get("phase") == "capture")
+    assert cap["a"]["refine_fitness"] >= 0.9 and cap["a"]["defect_points"] > 0
+    assert [c["frame"] for c in cap["b"]["captures"]] == [0, 2]
+    assert cap["vs_plain"]["loop_tf_max_abs_diff"] == 0.0

@@ -9,7 +9,7 @@ import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ["jax", "flax", "orbax", "sixdof_tpu", "cv2", "PIL", "imageio", "zstandard", "h5py",
-             "open3d"]
+             "open3d", "dash", "plotly"]
 
 
 def test_import_graph_has_no_jax_or_host_libraries():
@@ -20,6 +20,7 @@ import sixdof_tpu_torch
 for m in pkgutil.walk_packages(sixdof_tpu_torch.__path__, "sixdof_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
+import run_torch
 bad = [n for n in sys.modules if n.split(".")[0] in {FORBIDDEN!r}]
 print("BAD", bad)
 print("N", sum(n.startswith("sixdof_tpu_torch") for n in sys.modules))
@@ -30,7 +31,7 @@ print("N", sum(n.startswith("sixdof_tpu_torch") for n in sys.modules))
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
     n = int(out.stdout.split("N ")[1].split()[0])
-    assert n >= 20  # every submodule was imported
+    assert n >= 30  # every submodule was imported
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
@@ -61,7 +62,7 @@ def test_kernel_wrapper_dispatch(monkeypatch):
     """CPU tensors take the plain version; a CUDA tensor never falls back."""
     import torch
 
-    from sixdof_tpu_torch.kernels import raster
+    from sixdof_tpu_torch.kernels import build, raster
 
     coef = torch.zeros((1, 2, 4, 3))
     coef[:, :, 0, 2] = -1.0  # never inside
@@ -69,8 +70,8 @@ def test_kernel_wrapper_dispatch(monkeypatch):
     z, t = raster.rasterize_zbuffer(coef, counts, 4, 4)
     assert (z == 0).all() and (t == -1).all()
     before = raster.rasterize_zbuffer.launches
-    monkeypatch.setattr(raster, "_nvcc", lambda: (_ for _ in ()).throw(RuntimeError("no nvcc")))
-    monkeypatch.setattr(raster, "_lib", None)
+    monkeypatch.setattr(build, "nvcc", lambda: (_ for _ in ()).throw(RuntimeError("no nvcc")))
+    monkeypatch.setattr(raster.LIBRARY, "lib", None)
 
     class FakeCuda:  # a tensor that claims to be on the card
         device = torch.device("cuda")
@@ -87,6 +88,36 @@ def test_kernel_wrapper_dispatch(monkeypatch):
     with pytest.raises((RuntimeError, ValueError)):
         raster.rasterize_zbuffer(FakeCuda(), fake_counts, 4, 4)
     assert raster.rasterize_zbuffer.launches == before
+
+
+def test_ray_kernel_wrapper_dispatch(monkeypatch):
+    """K2: CPU tensors take the plain version; a CUDA tensor never falls
+    back (it launches the kernel or raises), and nothing builds at import."""
+    import torch
+
+    from sixdof_tpu_torch.kernels import build, raytrace
+
+    o = torch.zeros((2, 3))
+    d = torch.tensor([[0.0, 0.0, 1.0], [1.0, 0.0, 0.0]])
+    tv = torch.tensor([[[-1.0, -1.0, 2.0], [1.0, -1.0, 2.0], [0.0, 1.0, 2.0]]])
+    tris = raytrace.pack_tris(tv, torch.ones(1, dtype=torch.bool))
+    t = raytrace.ray_mesh_intersect(o, d, torch.ones(2, dtype=torch.bool), tris)
+    assert t[0] == 2.0 and torch.isinf(t[1])
+    assert raytrace.LIBRARY.lib is None
+    before = raytrace.ray_mesh_intersect.launches
+    monkeypatch.setattr(build, "nvcc", lambda: (_ for _ in ()).throw(RuntimeError("no nvcc")))
+
+    class FakeCuda:  # a tensor that claims to be on the card
+        device = torch.device("cuda")
+        shape = (2, 3)
+        dtype = torch.float32
+
+        def is_contiguous(self):
+            return True
+
+    with pytest.raises((RuntimeError, ValueError)):
+        raytrace.ray_mesh_intersect(FakeCuda(), d, torch.ones(2, dtype=torch.bool), tris)
+    assert raytrace.ray_mesh_intersect.launches == before
 
 
 def test_chip_smoke_exits_nonzero_without_cuda(tmp_path):

@@ -9,6 +9,7 @@ import torch
 
 from sixdof_tpu_torch.io.mesh_io import load_mesh
 from sixdof_tpu_torch.kernels import raster as k1
+from sixdof_tpu_torch.kernels import raytrace as k2
 from sixdof_tpu_torch.ops.geometry import compute_crop_window_tf_batch
 from sixdof_tpu_torch.ops.hypotheses import make_rotation_grid
 from sixdof_tpu_torch.ops.rasterize import make_mesh_arrays, render_batch, zbuffer_setup
@@ -65,3 +66,59 @@ def test_raster_kernel_rejects_bad_inputs(card):
         k1.rasterize_zbuffer(coef.transpose(1, 2), counts, 8, 8)
     z, t = k1.rasterize_zbuffer(coef, counts, 8, 8)  # all-zero planes: iz = 0, never inside
     assert (t == -1).all() and (z == 0).all()
+
+
+def _k2_case(card, n_rays, seed, mask_every=0):
+    """model.obj posed by the annotated pose of frame 0 (colour camera, mm),
+    rays from the camera centre around the object; every @mask_every-th ray
+    and triangle masked."""
+    from sixdof_tpu_torch.ops.raytrace import mesh_to_tri_verts
+
+    scene = os.path.join(REPO, "demo_data", "synth_box")
+    mesh = load_mesh(os.path.join(scene, "mesh", "model.obj"))
+    gt = np.loadtxt(os.path.join(scene, "annotated_poses", "0000.txt"))
+    gt[:3, 3] *= 1000.0
+    mesh.transform(gt)
+    tri, tri_mask = mesh_to_tri_verts(mesh.vertices, mesh.faces)
+    rng = np.random.RandomState(seed)
+    dirs = mesh.vertices.mean(axis=0) + rng.randn(n_rays, 3) * 30.0
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    ray_mask = np.ones(n_rays, bool)
+    if mask_every:
+        ray_mask[::mask_every] = False
+        tri_mask[::mask_every] = False
+    tris = k2.pack_tris(torch.tensor(tri, device=card), torch.tensor(tri_mask, device=card))
+    d = torch.tensor(dirs, dtype=torch.float32, device=card)
+    return torch.zeros_like(d), d, torch.tensor(ray_mask, device=card), tris
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rays,mask_every", [(587, 0), (8192, 11), (1, 0), (129, 3),
+                                               (40000, 0)])
+def test_ray_mesh_kernel_matches_plain(card, n_rays, mask_every):
+    o, d, m, tris = _k2_case(card, n_rays, seed=n_rays, mask_every=mask_every)
+    before = k2.ray_mesh_intersect.launches
+    tk = k2.ray_mesh_intersect(o, d, m, tris)
+    assert k2.ray_mesh_intersect.launches == before + 1
+    tp = k2.ray_mesh_intersect_plain(o, d, m, tris)
+    torch.cuda.synchronize()
+    assert torch.isfinite(tk).any() or n_rays == 1
+    assert torch.equal(tk, tp)  # the same fp32 operations in the same order
+    assert torch.isinf(tk[~m]).all()
+
+
+@pytest.mark.cuda
+def test_ray_mesh_kernel_edge_cases(card):
+    o, d, m, tris = _k2_case(card, 300, seed=1)
+    empty = tris[:0].contiguous()
+    assert torch.isinf(k2.ray_mesh_intersect(o, d, m, empty)).all()
+    none = k2.ray_mesh_intersect(o[:0], d[:0], m[:0], tris)
+    assert none.shape == (0,)
+    with pytest.raises(ValueError):
+        k2.ray_mesh_intersect(o.double(), d, m, tris)
+    with pytest.raises(ValueError):
+        k2.ray_mesh_intersect(o, d, m.float(), tris)
+    with pytest.raises(ValueError):
+        k2.ray_mesh_intersect(o, d, m, tris[:, :8])
+    with pytest.raises(ValueError):
+        k2.ray_mesh_intersect(o, d.t().contiguous().t(), m, tris)
