@@ -8,11 +8,19 @@ Phases, one JSON line each; a phase that fails raises and the script exits
 non-zero without printing the final result:
 
   device   the card's name and power limit (torch and nvidia-smi)
-  build    nvcc compiles both kernel sources at once
-           (sixdof_tpu_torch/csrc/raster_zbuffer.cu, csrc/ray_mesh.cu)
-  k1       raster kernel K1 against its plain PyTorch version on the card,
-           on the register shapes (B=252 at 96x96, B=64 at 160x160) with
-           backface culling and compaction; kernel and plain timings
+  build    both kernel sources and the PNG row-filter routine compile at
+           once (nvcc: sixdof_tpu_torch/csrc/raster_zbuffer.cu,
+           csrc/ray_mesh.cu; cc: csrc/png_unfilter.c)
+  k1       raster kernel K1 against its plain PyTorch version on the card
+           (zbuf bit-equal, tid equal on every pixel), on the register
+           shapes (B=252 at 96x96, B=64 at 160x160), the track shapes (B=1
+           at 160x160 and 96x96) and model_scaled_down.obj subdivided to
+           5120 triangles (B=64 at 160x160), with backface culling and
+           compaction; kernel (CUDA events and profiler device time) and
+           plain timings, the bound from the pixels in each candidate's
+           bounding box beside the brute-force bound, and the mean
+           candidates per 16x16 tile and per 8x4 warp region that pass the
+           kernel's corner test
   pose     the pose server at full width (252 hypotheses, 96x96 coarse
            phase, 160x160 refine and score, 5 register iterations, depth
            polish, then track_one with 2 iterations and the track polish on
@@ -49,11 +57,12 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # FLOP/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
-# K1 tolerances: both versions do the same IEEE fp32 operations in the same
-# order, so depth is expected bit-equal; tid may differ only where two
-# candidates have exactly equal inverse depth
-K1_DEPTH_ATOL = 1e-6
-K1_TID_MIN_AGREE = 0.999
+# K1 against its plain version: the same IEEE fp32 operations in the same
+# order over the candidates in ascending order, so depth bit-equal
+# (tolerance 0) and tid equal on every pixel (no mismatch allowed)
+K1_DEPTH_ATOL = 0.0
+# 4 planes x (2 multiplies + 2 adds) per (pixel, triangle) test
+K1_FLOPS_PER_PAIR = 16
 # kernel run vs plain-raster run of the pose server
 POSE_ROT_DEG_MAX = 0.1
 POSE_TRANS_M_MAX = 1e-4
@@ -104,8 +113,96 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def phase_k1(device, mesh_arrays, poses_all, K, diameter, shapes, n_time):
-    """K1 against its plain version at the register shapes."""
+def _subdivide(mesh):
+    """Midpoint subdivision: each triangle into four, sharing edge midpoints
+    (1280 -> 5120 triangles for model_scaled_down.obj)."""
+    import numpy as np
+
+    from sixdof_tpu_torch.io.mesh_io import TriMesh
+
+    v, f = mesh.vertices, mesh.faces
+    edges = np.sort(np.concatenate([f[:, [0, 1]], f[:, [1, 2]], f[:, [2, 0]]]), axis=1)
+    uniq, inv = np.unique(edges, axis=0, return_inverse=True)
+    ab, bc, ca = (len(v) + inv.reshape(3, -1))  # midpoints of edges 01, 12, 20
+    a, b, c = f.T
+    faces = np.stack([np.stack(t, 1) for t in ((a, ab, ca), (ab, b, bc), (ca, bc, c),
+                                              (ab, bc, ca))], 1).reshape(-1, 3)
+    colors = mesh.vertex_colors
+    if colors is not None:
+        colors = np.vstack([colors, (colors[uniq[:, 0]] + colors[uniq[:, 1]]) / 2])
+    return TriMesh(np.vstack([v, (v[uniq[:, 0]] + v[uniq[:, 1]]) / 2]), faces, colors)
+
+
+def _bbox_pairs(setup, faces, K, tfs, H, W):
+    """(pixel, candidate) pairs whose pixel lies in the candidate triangle's
+    screen bounding box, clamped to the crop: the work these inputs need."""
+    import torch
+
+    from sixdof_tpu_torch.ops.rasterize import ZNEAR
+
+    uvw = torch.matmul(setup["p_cam"], K.T)
+    uv = uvw[..., :2] / torch.clamp(uvw[..., 2:3], min=ZNEAR)
+    uv = torch.matmul(torch.cat([uv, torch.ones_like(uv[..., :1])], -1),
+                      tfs.transpose(1, 2))[..., :2]
+    tri = torch.take_along_dim(uv[:, faces], setup["order"][..., None, None], dim=1)
+    lo = torch.ceil(tri.amin(dim=2)).clamp(min=0)
+    hi = torch.minimum(torch.floor(tri.amax(dim=2)), torch.tensor([W - 1.0, H - 1.0],
+                                                                  device=tri.device))
+    n = torch.clamp(hi - lo + 1, min=0).prod(dim=-1)  # (B,T)
+    live = torch.arange(n.shape[1], device=n.device) < setup["counts"][:, None]
+    return int(torch.where(live, n, 0).double().sum())
+
+
+def _tile_survivors(coef, counts, H, W, tw=16, th=16):
+    """Mean candidates per (pose, tw x th tile) that pass K1's corner test
+    (csrc/raster_zbuffer.cu: 16x16 tiles, then 8x4 warp regions), in
+    PyTorch float32 at all four corners (the kernel's one-corner form
+    decides the same; tests/test_torch_raster_binning.py)."""
+    import torch
+
+    def plane(c, x, y):
+        return (c[..., 0] * x + c[..., 1] * y) + c[..., 2]
+
+    dev = coef.device
+    ty, tx = torch.meshgrid(torch.arange(0, H, th, device=dev),
+                            torch.arange(0, W, tw, device=dev), indexing="ij")
+    x0, y0 = tx.reshape(-1, 1, 1).float(), ty.reshape(-1, 1, 1).float()
+    x1 = (torch.clamp(tx + tw, max=W) - 1).reshape(-1, 1, 1).float()
+    y1 = (torch.clamp(ty + th, max=H) - 1).reshape(-1, 1, 1).float()
+    total = 0
+    for b0 in range(0, coef.shape[0], 16):
+        c = coef[b0:b0 + 16, None, :, :3, :]
+        lim = -2.0 * (2.0 ** -22 * plane(c.abs(), x1, y1) + torch.finfo(torch.float32).tiny)
+        below = ((plane(c, x0, y0) < lim) & (plane(c, x1, y0) < lim)
+                 & (plane(c, x0, y1) < lim) & (plane(c, x1, y1) < lim)).any(dim=-1)
+        live = torch.arange(coef.shape[1], device=dev) < counts[b0:b0 + 16, None]
+        total += int((~below & live[:, None]).sum())
+    return total / (coef.shape[0] * x0.shape[0])
+
+
+def _device_us(fn, n, name):
+    """Mean device microseconds of the kernels named @name over @n calls of
+    @fn, from torch.profiler; None where the profiler sees no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us, count = 0.0, 0
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) == DeviceType.CUDA and name in e.key:
+            us += float(getattr(e, "self_device_time_total", 0.0)
+                        or getattr(e, "self_cuda_time_total", 0.0))
+            count += int(e.count)
+    return us / count if count and us > 0 else None
+
+
+def phase_k1(device, cases, K, diameter, n_time):
+    """K1 against its plain version: zbuf bit-equal and tid equal on every
+    pixel.  @cases: (label, mesh arrays, poses, H, W)."""
     import torch
 
     from sixdof_tpu_torch.kernels.raster import rasterize_zbuffer, rasterize_zbuffer_plain
@@ -113,8 +210,8 @@ def phase_k1(device, mesh_arrays, poses_all, K, diameter, shapes, n_time):
     from sixdof_tpu_torch.ops.rasterize import render_batch, zbuffer_setup
 
     results = []
-    for B, H, W in shapes:
-        poses = poses_all[:B]
+    for label, mesh_arrays, poses, H, W in cases:
+        B = poses.shape[0]
         tfs = compute_crop_window_tf_batch(poses, K, 1.2, (W, H), diameter)
         s = zbuffer_setup(mesh_arrays, poses, K, tfs, backface_cull=True)
         coef, counts = s["coef_c"], s["counts"]
@@ -122,20 +219,7 @@ def phase_k1(device, mesh_arrays, poses_all, K, diameter, shapes, n_time):
         zp, tp = rasterize_zbuffer_plain(coef, counts, H, W)
         _sync(device)
         depth_err = float((zk - zp).abs().max())
-        agree = float((tk == tp).double().mean())
-        # every tid mismatch must sit on an exact inverse-depth tie
-        bad = (tk != tp).nonzero()
-        ties_ok = True
-        if len(bad):
-            b, p = bad[:, 0], bad[:, 1]
-            px, py = (p % W).float(), torch.div(p, W, rounding_mode="floor").float()
-
-            def iz(t):
-                c = coef[b, t.long().clamp(min=0), 3]
-                return c[:, 0] * px + c[:, 1] * py + c[:, 2]
-
-            ties_ok = bool(((tk[b, p] >= 0) & (tp[b, p] >= 0)).all()
-                           and (iz(tk[b, p]) == iz(tp[b, p])).all())
+        mismatch = int((tk != tp).sum())
         rk = render_batch(mesh_arrays, poses, K, tfs, out_hw=(H, W), backface_cull=True)
         rp = render_batch(mesh_arrays, poses, K, tfs, out_hw=(H, W), backface_cull=True,
                           plain_raster=True)
@@ -144,22 +228,32 @@ def phase_k1(device, mesh_arrays, poses_all, K, diameter, shapes, n_time):
         for _ in range(3):
             rasterize_zbuffer(coef, counts, H, W)
         ms = _timed(lambda: rasterize_zbuffer(coef, counts, H, W), device, n_time)
+        device_us = (_device_us(lambda: rasterize_zbuffer(coef, counts, H, W), n_time,
+                                "raster_zbuffer") if device.type == "cuda" else None)
         plain_ms = _timed(lambda: rasterize_zbuffer_plain(coef, counts, H, W), device,
                           max(1, n_time // 10))
-        n_tests = int(counts.long().sum()) * H * W
-        bytes_moved = int(counts.long().sum()) * 48 + B * 4 + B * H * W * 8
-        flops = n_tests * 16  # 4 planes x (2 multiplies + 2 adds) per (pixel, triangle)
-        t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
-        res = dict(B=B, H=H, W=W, mean_count=float(counts.float().mean()),
-                   max_abs_depth_err=depth_err, tid_agree=agree, tid_mismatch=len(bad),
-                   mismatches_at_ties=ties_ok, render_max_abs_err=render_err,
-                   ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+        # bound: the work these inputs need (pixels in each candidate's
+        # bounding box); beside it the brute-force count (every pixel against
+        # every candidate) that the earlier one-thread-a-pixel kernel did
+        n_cand = int(counts.long().sum())
+        pairs = _bbox_pairs(s, mesh_arrays.faces, K, tfs, H, W)
+        bytes_moved = n_cand * 48 + B * 4 + B * H * W * 8
+        t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+        t_ops = pairs * K1_FLOPS_PER_PAIR / FP32_FLOPS * 1e3
+        brute_ms = max(t_bytes, n_cand * H * W * K1_FLOPS_PER_PAIR / FP32_FLOPS * 1e3)
+        res = dict(shape=label, B=B, H=H, W=W, triangles=int(mesh_arrays.faces.shape[0]),
+                   mean_count=float(counts.float().mean()),
+                   mean_tile_survivors=_tile_survivors(coef, counts, H, W),
+                   mean_region_survivors=_tile_survivors(coef, counts, H, W, 8, 4),
+                   bbox_pairs=pairs,
+                   max_abs_depth_err=depth_err, tid_mismatch=mismatch,
+                   render_max_abs_err=render_err, ms=ms, device_us=device_us,
+                   plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes > t_ops else "operations",
-                   gflops=flops / (ms * 1e-3) / 1e9)
+                   brute_bound_ms=brute_ms)
         emit({"phase": "k1", **res})
-        if not (depth_err <= K1_DEPTH_ATOL and agree >= K1_TID_MIN_AGREE and ties_ok
-                and render_err <= K1_DEPTH_ATOL):
-            raise RuntimeError(f"K1 disagrees with its plain version at B={B} {H}x{W}: {res}")
+        if depth_err > K1_DEPTH_ATOL or mismatch or render_err > K1_DEPTH_ATOL:
+            raise RuntimeError(f"K1 disagrees with its plain version at {label}: {res}")
         results.append(res)
     return results
 
@@ -494,6 +588,7 @@ def run(device="cuda", small=False):
 
     from sixdof_tpu_torch.config import PipelineConfig
     from sixdof_tpu_torch.device import resolve_device
+    from sixdof_tpu_torch.io import png
     from sixdof_tpu_torch.io.mesh_io import load_mesh
     from sixdof_tpu_torch.io.readers import DataReader
     from sixdof_tpu_torch.kernels import raster, raytrace
@@ -514,12 +609,13 @@ def run(device="cuda", small=False):
         emit({"phase": "device", "name": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count(), "torch": torch.__version__,
               "cuda": torch.version.cuda})
-        seconds = build_all([raster.LIBRARY, raytrace.LIBRARY])
+        libraries = (raster.LIBRARY, raytrace.LIBRARY, png.LIBRARY)
+        seconds = build_all(libraries)
         emit({"phase": "build", "seconds": seconds,
               "libraries": {lib.name: {"library": os.path.relpath(lib.info["library"], REPO),
                                        "seconds": lib.info["seconds"],
                                        "ptxas": lib.info["ptxas"].strip().splitlines()[-2:]}
-                            for lib in (raster.LIBRARY, raytrace.LIBRARY)}})
+                            for lib in libraries}})
 
     cfg = PipelineConfig()
     if small:
@@ -537,9 +633,16 @@ def run(device="cuda", small=False):
     rng = np.random.RandomState(0)
     grid[:, :3, 3] = np.array([0.0, 0.0, 0.55]) + rng.uniform(-0.02, 0.02, (len(grid), 3))
     poses = torch.as_tensor(grid, dtype=torch.float32, device=dev)
-    shapes = [(8, 24, 24), (4, 40, 40)] if small else [(252, 96, 96), (64, 160, 160)]
-    k1 = phase_k1(dev, make_mesh_arrays(mesh, dev), poses, K, diameter, shapes,
-                  n_time=2 if small else 50)
+    # the register shapes, the track shapes, and the 5120-triangle mesh (the
+    # size at which the JAX package switches to its banded raster form)
+    arrays, fine = make_mesh_arrays(mesh, dev), make_mesh_arrays(_subdivide(mesh), dev)
+    sizes = ((8, 24), (4, 40), (1, 40), (1, 24), (4, 40)) if small else \
+        ((252, 96), (64, 160), (1, 160), (1, 96), (64, 160))
+    labels = ("register_coarse", "register_refine", "track_refine", "track_coarse",
+              "subdivided_5120")
+    cases = [(label, fine if label == "subdivided_5120" else arrays, poses[:B], hw, hw)
+             for label, (B, hw) in zip(labels, sizes)]
+    k1 = phase_k1(dev, cases, K, diameter, n_time=2 if small else 50)
 
     # the pose server, through the kernel, then through the plain raster
     refiner = PoseRefinePredictor(dev, cfg={"input_resize": cfg.input_resize}, seed=0)

@@ -2,57 +2,44 @@
 
 Supports 8-bit gray, RGB and RGBA and 16-bit gray, non-interlaced, with
 all five row filters (the demo scenes use 8-bit RGB, 8-bit gray and 16-bit
-gray).  Returns what OpenCV returns for ``IMREAD_UNCHANGED``: (H,W) for
-gray, (H,W,3) BGR for RGB, (H,W,4) BGRA for RGBA; uint8 or uint16.
+gray).  The row filters are undone in C (`csrc/png_unfilter.c`, built with
+the system C compiler at first use; without one, decoding raises).  Returns
+what OpenCV returns for ``IMREAD_UNCHANGED``: (H,W) for gray, (H,W,3) BGR
+for RGB, (H,W,4) BGRA for RGBA; uint8 or uint16.
 """
 from __future__ import annotations
 
+import ctypes
 import struct
 import zlib
 
 import numpy as np
 
+from ..kernels.build import KernelLibrary
+
 _SIG = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 6: 4}  # colour type -> samples per pixel
 
 
+def _bind(lib):
+    lib.png_unfilter.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 3
+    lib.png_unfilter.restype = ctypes.c_int
+
+
+# the row filters run in C (csrc/png_unfilter.c), built on first use
+LIBRARY = KernelLibrary("png_unfilter", _bind, ext=".c")
+
+
 def _unfilter(raw, h, stride, bpp):
     """Undo the per-row filters; @raw holds h rows of 1 + stride bytes."""
-    rows = np.frombuffer(raw, dtype=np.uint8).reshape(h, stride + 1)
-    ftypes = rows[:, 0]
-    data = rows[:, 1:].astype(np.int32)
-    out = np.zeros((h, stride), dtype=np.int32)
-    prev = np.zeros(stride, dtype=np.int32)
-    for y in range(h):
-        f = int(ftypes[y])
-        cur = data[y]
-        if f == 0:
-            rec = cur
-        elif f == 2:  # up
-            rec = (cur + prev) & 0xFF
-        elif f in (1, 3, 4):  # sub / average / paeth depend on the left byte
-            rec = np.empty(stride, dtype=np.int32)
-            if f == 1:
-                # sub: running sum per byte lane
-                for lane in range(bpp):
-                    rec[lane::bpp] = np.cumsum(cur[lane::bpp]) & 0xFF
-            else:
-                for x in range(stride):
-                    a = int(rec[x - bpp]) if x >= bpp else 0
-                    b = int(prev[x])
-                    if f == 3:
-                        rec[x] = (int(cur[x]) + ((a + b) >> 1)) & 0xFF
-                    else:
-                        c = int(prev[x - bpp]) if x >= bpp else 0
-                        p = a + b - c
-                        pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
-                        pred = a if (pa <= pb and pa <= pc) else (b if pb <= pc else c)
-                        rec[x] = (int(cur[x]) + pred) & 0xFF
-        else:
-            raise ValueError(f"bad PNG filter type {f}")
-        out[y] = rec
-        prev = rec
-    return out.astype(np.uint8)
+    if len(raw) < h * (stride + 1):
+        raise ValueError("truncated PNG image data")
+    src = np.frombuffer(raw, dtype=np.uint8)
+    out = np.empty((h, stride), dtype=np.uint8)
+    rc = LIBRARY.load().png_unfilter(src.ctypes.data, out.ctypes.data, h, stride, bpp)
+    if rc:
+        raise ValueError(f"bad PNG filter type {raw[(rc - 1) * (stride + 1)]}")
+    return out
 
 
 def read_png(path):

@@ -1,10 +1,12 @@
-"""Build and load the hand-written CUDA kernels.
+"""Build and load the hand-written CUDA kernels and the port's C routines.
 
-Each kernel source in `csrc/` has a plain C interface.  `KernelLibrary`
-compiles it with `nvcc` for `sm_90a` on first use into `build/kernels/`
-under the repository root (git-ignored), names the library by a hash of
-the source and the flags, and loads it with ctypes: no PyTorch headers and
-no ninja, so a build takes seconds.  Nothing is built at import.
+Each source in `csrc/` has a plain C interface.  `KernelLibrary` compiles
+it on first use into `build/kernels/` under the repository root
+(git-ignored): a CUDA source (`.cu`) with `nvcc` for `sm_90a`, a host C
+source (`.c`) with the system C compiler (`cc -O2 -shared -fPIC`).  It names
+the library by a hash of the source and the flags and loads it with ctypes:
+no PyTorch headers and no ninja, so a build takes seconds.  Nothing is
+built at import.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+CC_FLAGS = ["-O2", "-shared", "-fPIC"]
 
 
 def nvcc():
@@ -30,16 +33,24 @@ def nvcc():
     return path
 
 
+def cc():
+    path = shutil.which("cc")
+    if path is None:
+        raise RuntimeError("no C compiler (cc) found: the port's C routines are built with it")
+    return path
+
+
 class KernelLibrary:
-    """One `csrc/<name>.cu` source, built and loaded at the first `load()`.
+    """One `csrc/<name><ext>` source, built and loaded at the first `load()`.
 
-    @bind: sets the argtypes/restype of the library's C functions.
-    `info` holds the library path, the build seconds and nvcc's
-    `-Xptxas -v` report once loaded."""
+    @bind: sets the argtypes/restype of the library's C functions;
+    @ext: ".cu" (nvcc) or ".c" (the system C compiler).
+    `info` holds the library path, the build seconds and the compiler's
+    report (nvcc's `-Xptxas -v`) once loaded."""
 
-    def __init__(self, name, bind):
+    def __init__(self, name, bind, ext=".cu"):
         self.name = name
-        self.source = os.path.join(CSRC, f"{name}.cu")
+        self.source = os.path.join(CSRC, f"{name}{ext}")
         self._bind = bind
         self.lib = None
         self.info = {}
@@ -48,14 +59,16 @@ class KernelLibrary:
         """Start nvcc on the source unless its library exists; returns the
         running process (or None) and the library path, so several sources
         can compile at once."""
+        cuda = self.source.endswith(".cu")
+        flags = NVCC_FLAGS if cuda else CC_FLAGS
         with open(self.source, "rb") as f:
-            digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+            digest = hashlib.sha256(f.read() + " ".join(flags).encode()).hexdigest()[:16]
         os.makedirs(BUILD_DIR, exist_ok=True)
         so = os.path.join(BUILD_DIR, f"lib{self.name}_{digest}.so")
         if os.path.exists(so):
             return None, so
         tmp = f"{so}.{os.getpid()}.tmp"
-        proc = subprocess.Popen([nvcc(), *NVCC_FLAGS, "-o", tmp, self.source],
+        proc = subprocess.Popen([nvcc() if cuda else cc(), *flags, "-o", tmp, self.source],
                                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         proc.tmp = tmp
         return proc, so
@@ -71,7 +84,7 @@ class KernelLibrary:
         if proc is not None:
             _, log = proc.communicate()
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {self.source}:\n{log}")
+                raise RuntimeError(f"{proc.args[0]} failed on {self.source}:\n{log}")
             os.replace(proc.tmp, so)
         lib = ctypes.CDLL(so)
         self._bind(lib)

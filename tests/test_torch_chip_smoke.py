@@ -24,7 +24,7 @@ def test_chip_smoke_rehearsal_on_cpu(capsys):
     kernels = chip_smoke.run("cpu", small=True)
     lines = [json.loads(x) for x in capsys.readouterr().out.splitlines() if x.startswith("{")]
     phases = [x.get("phase") for x in lines]
-    assert phases.count("k1") == 2 and "pose" in phases
+    assert phases.count("k1") == 5 and "pose" in phases
     assert phases.count("k2") == 3 and "capture" in phases
     assert lines[-1] == {"kernels": kernels}
     assert [k["name"] for k in kernels] == ["raster_zbuffer", "ray_mesh_intersect"]
@@ -35,6 +35,12 @@ def test_chip_smoke_rehearsal_on_cpu(capsys):
         path, line = k["replaces"].split(":")
         assert "pallas_call" in open(os.path.join(REPO, path)).read().splitlines()[int(line) - 1]
         assert k["max_abs_err"] == 0.0 and k["library_ms"] is None
+    k1 = [x for x in lines if x.get("phase") == "k1"]
+    assert [x["triangles"] for x in k1] == [1280] * 4 + [5120]
+    assert all(x["tid_mismatch"] == 0 and x["max_abs_depth_err"] == 0.0 for x in k1)
+    assert all(0 < x["mean_region_survivors"] <= x["mean_tile_survivors"] <= x["mean_count"]
+               for x in k1)
+    assert all(0 < x["bound_ms"] <= x["brute_bound_ms"] for x in k1)
     pose = next(x for x in lines if x.get("phase") == "pose")
     assert len(pose["adds_m"]) == 3 and max(pose["vs_plain_rot_deg"]) == 0.0
     k2 = [x for x in lines if x.get("phase") == "k2"]
