@@ -26,10 +26,15 @@ non-zero without printing the final result:
            polish, then track_one with 2 iterations and the track polish on
            frames 1-5) with seeded networks, through the kernel; then the
            same loop with the plain raster, which must agree
-  k2       ray-mesh kernel K2 against its plain version at three shapes:
+  k2       ray-mesh kernel K2 against its plain version at four shapes:
            the capture's heatmap rays (587 x 1280 triangles of model.obj
            posed by the annotated pose), 8192 seeded rays (MAX_DEFECT_RAYS,
-           some masked) and every pixel of the 640x480 frame; t bit-equal
+           some masked) and every pixel of the 640x480 frame, all from the
+           camera centre, and 8192 rays from seeded origins (no common
+           origin); t bit-equal; kernel (CUDA events and profiler device
+           time) and plain timings, the bound from the pairs whose direction
+           lies in the triangle's enlarged cone beside the brute-force
+           bound, and the triangles each block keeps (mean, max)
   capture  (a) refine_pose_with_icp from the annotated pose of frame 0, the
            frame-0 defect ray trace and one async capture on frame 2;
            (b) the port's run loop (sixdof_tpu_torch/app/run.py::main) on
@@ -314,11 +319,36 @@ def phase_pose(device, cfg, small, n_frames, plain_raster, refiner, scorer, warm
                 top_score=float(est.scores[0]), scores=est.scores)
 
 
-def phase_k2(device, scene, small, n_time):
-    """K2 against its plain version at the capture's shapes: the heatmap's
-    rays, MAX_DEFECT_RAYS seeded rays (every 11th masked), every pixel of
-    the frame; triangles: model.obj posed by the annotated pose of frame 0
-    in the colour camera (mm)."""
+def _cone_pairs(o, d, valid, tris, chunk):
+    """(ray, triangle) pairs that can hit: the direction lies inside the
+    cone of the triangle enlarged by the 1e-6 slack, in front of the
+    origin (Moller-Trumbore in float64 on the float32 inputs, no det cut):
+    the work these inputs need."""
+    import torch
+
+    tris = tris.double()
+    v0, e1, e2 = tris[:, 0:3], tris[:, 3:6], tris[:, 6:9]
+    n = 0
+    for i in range(0, len(o), chunk):
+        oc, dc = o[i:i + chunk].double(), d[i:i + chunk].double()
+        p = torch.cross(dc[:, None], e2[None].expand(len(dc), -1, -1), dim=-1)
+        det = (p * e1[None]).sum(-1)
+        s = oc[:, None] - v0[None]
+        q = torch.cross(s, e1[None].expand(len(dc), -1, -1), dim=-1)
+        u, v = (s * p).sum(-1) / det, (q * dc[:, None]).sum(-1) / det
+        t = (q * e2[None]).sum(-1) / det
+        inside = (det != 0) & (u >= -1e-6) & (v >= -1e-6) & (u + v <= 1 + 1e-6) & (t > 1e-6)
+        n += int((inside & valid[i:i + chunk, None]).sum())
+    return n
+
+
+def k2_cases(device, scene, small):
+    """K2's inputs at the capture's shapes: (packed triangles, their mask,
+    [(name, origins or None for the camera centre, dirs, valid)]): the
+    heatmap's rays, MAX_DEFECT_RAYS seeded rays (every 11th masked), every
+    pixel of the frame, and MAX_DEFECT_RAYS rays from seeded origins inside
+    and outside the mesh's bounding box; triangles: model.obj posed by the
+    annotated pose of frame 0 in the colour camera (mm)."""
     import numpy as np
     import torch
 
@@ -338,47 +368,76 @@ def phase_k2(device, scene, small, n_time):
     app_rays, _ = compute_rays(heatmap_to_points(heatmap, 0.75), reader.color_pinhole)
     rng = np.random.RandomState(0)
     centre = mesh.vertices.mean(axis=0)
-    rand = centre + rng.randn(64 if small else MAX_DEFECT_RAYS, 3) * 30.0
+    n_rand = 64 if small else MAX_DEFECT_RAYS
+    rand = centre + rng.randn(n_rand, 3) * 30.0
     rand_mask = np.arange(len(rand)) % 11 != 0
+    lo, hi = mesh.vertices.min(axis=0), mesh.vertices.max(axis=0)
+    mixed_o = lo + rng.rand(n_rand, 3) * (hi - lo) * 3.0 - (hi - lo)  # a third inside
+    mixed_d = centre + rng.randn(n_rand, 3) * 20.0 - mixed_o
     H, W = reader.color_pinhole.height, reader.color_pinhole.width
     Kp = reader.color_pinhole.intrinsic_matrix
     step = 20 if small else 1  # the rehearsal takes every 20th pixel
     ys, xs = np.mgrid[0:H:step, 0:W:step]
     pix = np.stack([(xs - Kp[0, 2]) / Kp[0, 0], (ys - Kp[1, 2]) / Kp[1, 1], np.ones_like(xs)],
                    axis=-1).reshape(-1, 3)
-    cases = [("heatmap", app_rays, np.ones(len(app_rays), bool)),
-             ("max_defect_rays", rand, rand_mask),
-             ("full_frame", pix, np.ones(len(pix), bool))]
-    results = []
-    for name, dirs, mask in cases:
+    cases = []
+    for name, origins, dirs, mask in [("heatmap", None, app_rays, np.ones(len(app_rays), bool)),
+                                      ("max_defect_rays", None, rand, rand_mask),
+                                      ("full_frame", None, pix, np.ones(len(pix), bool)),
+                                      ("mixed_origins", mixed_o, mixed_d, np.ones(n_rand, bool))]:
         dirs = dirs / np.linalg.norm(dirs, axis=1, keepdims=True)
         d = torch.as_tensor(dirs, dtype=torch.float32, device=device)
-        o = torch.zeros_like(d)
-        m = torch.as_tensor(mask, device=device)
+        o = (torch.zeros_like(d) if origins is None
+             else torch.as_tensor(origins, dtype=torch.float32, device=device))
+        cases.append((name, o, d, torch.as_tensor(mask, device=device)))
+    return tris, tri_mask, cases
+
+
+def phase_k2(device, scene, small, n_time):
+    """K2 against its plain version at the shapes of `k2_cases`; the last
+    one has no common origin (the kernel's uncull path).  Reports the
+    triangles each block of the kernel keeps (its cull test, emulated)."""
+    import torch
+
+    from sixdof_tpu_torch.kernels import raytrace as k2
+
+    tris, tri_mask, cases = k2_cases(device, scene, small)
+    results = []
+    for name, o, d, m in cases:
         tk = k2.ray_mesh_intersect(o, d, m, tris)
         tp = k2.ray_mesh_intersect_plain(o, d, m, tris)
         _sync(device)
+        bit_equal = torch.equal(tk, tp)
         hits_equal = bool((torch.isfinite(tk) == torch.isfinite(tp)).all())
         both = torch.isfinite(tk) & torch.isfinite(tp)
         err = float((tk[both] - tp[both]).abs().max()) if bool(both.any()) else 0.0
         for _ in range(3):
             k2.ray_mesh_intersect(o, d, m, tris)
         ms = _timed(lambda: k2.ray_mesh_intersect(o, d, m, tris), device, n_time)
+        device_us = (_device_us(lambda: k2.ray_mesh_intersect(o, d, m, tris), n_time,
+                                "ray_mesh_kernel") if device.type == "cuda" else None)
         n_plain = 2 if name == "full_frame" else max(1, n_time // 10)
         plain_ms = _timed(lambda: k2.ray_mesh_intersect_plain(o, d, m, tris), device, n_plain)
-        N, T = len(dirs), len(tri)
-        pairs = int(mask.sum()) * int(tri_mask.sum())
+        keep = k2.cull_keep(o, d, m, tris)
+        R = k2.THREADS >> k2.threads_per_ray_log2(len(d))
+        live = torch.cat([m, m.new_zeros(keep.shape[0] * R - len(m))]).reshape(-1, R).any(1)
+        kept = keep[live].sum(dim=1).float()
+        N, T = len(d), len(tri_mask)
+        pairs = int(m.sum()) * int(tri_mask.sum())
+        cone = _cone_pairs(o, d, m, tris, 1024 if small else 8192)
         bytes_moved = N * (12 + 12 + 1) + T * 36 + N * 4
         t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-        t_ops = pairs * k2.FLOPS_PER_PAIR / FP32_FLOPS * 1e3
-        res = dict(shape=name, rays=N, valid_rays=int(mask.sum()), triangles=T, pairs=pairs,
+        t_ops = cone * k2.FLOPS_PER_PAIR / FP32_FLOPS * 1e3
+        res = dict(shape=name, rays=N, valid_rays=int(m.sum()), triangles=T,
+                   rays_per_block=R, pairs=pairs, cone_pairs=cone,
+                   survivors_per_block={"mean": float(kept.mean()), "max": int(kept.max())},
                    hits=int(torch.isfinite(tk).sum()), hits_equal=hits_equal,
-                   max_abs_err=err, ms=ms, plain_ms=plain_ms, plain_calls=n_plain,
-                   bound_ms=max(t_bytes, t_ops),
+                   bit_equal=bit_equal, max_abs_err=err, ms=ms, device_us=device_us,
+                   plain_ms=plain_ms, plain_calls=n_plain, bound_ms=max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes > t_ops else "operations",
-                   gflops=pairs * k2.FLOPS_PER_PAIR / (ms * 1e-3) / 1e9)
+                   brute_bound_ms=max(t_bytes, pairs * k2.FLOPS_PER_PAIR / FP32_FLOPS * 1e3))
         emit({"phase": "k2", **res})
-        if not hits_equal or err > K2_T_ATOL or res["hits"] == 0:
+        if not (bit_equal and hits_equal) or err > K2_T_ATOL or res["hits"] == 0:
             raise RuntimeError(f"K2 disagrees with its plain version at {name}: {res}")
         results.append(res)
     return results

@@ -235,6 +235,18 @@ def pack_rgbd(rgb_u8, depth_u16):
         [rgb_u8, depth_u16.view(np.uint8).reshape(*depth_u16.shape, 2)], axis=-1)
 
 
+def unpack_rgbd(rgbd_u8):
+    """(H,W,5) uint8 from pack_rgbd -> (colour in [0,1] (H,W,3), depth in
+    metres (H,W)), float32, decoded as the JAX track program decodes them."""
+    # XLA compiles a division by a constant into a multiply by its float32
+    # reciprocal; the port follows the compiled program
+    rgb01 = rgbd_u8[..., :3].float() * (1.0 / 255.0)
+    depth_mm = rgbd_u8[..., 3].int() | (rgbd_u8[..., 4].int() << 8)  # little-endian uint16
+    # the same for depth: a true / 1000 differs by an ulp on 38,850 of the
+    # 65,536 values, which flips erosion's 1 mm test on millimetre depth
+    return rgb01, depth_mm.float() * (1.0 / 1000.0)
+
+
 @torch.no_grad()
 def track_pose(model, mesh: MeshArrays, pose_last, rgbd_u8, K, mesh_diameter, crop_ratio,
                trans_normalizer, rot_normalizer, iterations: int, out_hw=(160, 160),
@@ -244,9 +256,8 @@ def track_pose(model, mesh: MeshArrays, pose_last, rgbd_u8, K, mesh_diameter, cr
     """One tracking step on the device: unpack -> depth erode + bilateral ->
     xyz map -> refine -> (track polish).  @rgbd_u8: (H,W,5) uint8 tensor from
     pack_rgbd.  Returns (pose (1,4,4), filtered depth)."""
-    rgb01 = rgbd_u8[..., :3].float() / 255.0
-    depth_mm = rgbd_u8[..., 3].int() | (rgbd_u8[..., 4].int() << 8)  # little-endian uint16
-    depth = erode_depth(depth_mm.float() / 1000.0, radius=2)
+    rgb01, depth_raw = unpack_rgbd(rgbd_u8)
+    depth = erode_depth(depth_raw, radius=2)
     depth = bilateral_filter_depth(depth, radius=2)
     xyz_map = depth2xyzmap(depth, K)
     poses = refine_poses(model, mesh, pose_last, rgb01, xyz_map, K, mesh_diameter, crop_ratio,

@@ -61,7 +61,9 @@ def bilateral_filter_depth(depth, radius=2, zfar=100.0, sigma_d=2.0, sigma_r=100
     spatial = np.exp(-(du.astype(np.float64) ** 2 + dv**2) / (2.0 * sigma_d**2)).reshape(-1)
     spatial = torch.as_tensor(spatial, dtype=torch.float32, device=depth.device)[:, None, None]
 
-    rng = torch.exp(-((depth[None] - win0) ** 2) / (2.0 * sigma_r**2))
+    # the constant divisor as its float32 reciprocal, as XLA compiles the
+    # jitted JAX filter
+    rng = torch.exp(-((depth[None] - win0) ** 2) * (1.0 / (2.0 * sigma_r**2)))
     w = spatial * rng
     use = valid & (torch.abs(win0 - mean_depth[None]) < 0.01)
     w = torch.where(use, w, 0.0)

@@ -34,8 +34,10 @@ def so3_exp_map(log_rot):
     th2s = torch.clamp(theta2, min=_EPS)
     theta = torch.sqrt(th2s)
     small = theta2 > _EPS
-    sin_t_t = torch.where(small, torch.sin(theta) / theta, 1.0 - theta2 / 6.0)
-    one_m_cos_t2 = torch.where(small, (1.0 - torch.cos(theta)) / th2s, 0.5 - theta2 / 24.0)
+    # constant divisors as float32 reciprocals, as XLA compiles the JAX maps
+    sin_t_t = torch.where(small, torch.sin(theta) / theta, 1.0 - theta2 * (1.0 / 6.0))
+    one_m_cos_t2 = torch.where(small, (1.0 - torch.cos(theta)) / th2s,
+                               0.5 - theta2 * (1.0 / 24.0))
     K = hat(log_rot)
     KK = K @ K
     eye = torch.eye(3, dtype=log_rot.dtype, device=log_rot.device)
@@ -54,7 +56,7 @@ def so3_log_map(R):
     sin = 0.5 * torch.linalg.norm(w, dim=-1)
     theta = torch.atan2(sin, cos)
     scale = torch.where(theta > 1e-6, theta / torch.clamp(2.0 * sin, min=1e-12),
-                        0.5 + theta * theta / 12.0)
+                        0.5 + theta * theta * (1.0 / 12.0))
     generic = w * scale[..., None]
 
     diag = torch.stack([R[..., 0, 0], R[..., 1, 1], R[..., 2, 2]], dim=-1)

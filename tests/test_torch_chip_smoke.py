@@ -25,7 +25,7 @@ def test_chip_smoke_rehearsal_on_cpu(capsys):
     lines = [json.loads(x) for x in capsys.readouterr().out.splitlines() if x.startswith("{")]
     phases = [x.get("phase") for x in lines]
     assert phases.count("k1") == 5 and "pose" in phases
-    assert phases.count("k2") == 3 and "capture" in phases
+    assert phases.count("k2") == 4 and "capture" in phases
     assert lines[-1] == {"kernels": kernels}
     assert [k["name"] for k in kernels] == ["raster_zbuffer", "ray_mesh_intersect"]
     for k in kernels:
@@ -44,9 +44,16 @@ def test_chip_smoke_rehearsal_on_cpu(capsys):
     pose = next(x for x in lines if x.get("phase") == "pose")
     assert len(pose["adds_m"]) == 3 and max(pose["vs_plain_rot_deg"]) == 0.0
     k2 = [x for x in lines if x.get("phase") == "k2"]
-    assert [x["shape"] for x in k2] == ["heatmap", "max_defect_rays", "full_frame"]
+    assert [x["shape"] for x in k2] == ["heatmap", "max_defect_rays", "full_frame",
+                                        "mixed_origins"]
     assert k2[0]["rays"] == 587 and k2[0]["triangles"] == 1280
-    assert all(x["hits_equal"] and x["hits"] > 0 for x in k2)
+    assert all(x["bit_equal"] and x["hits_equal"] and x["hits"] > 0 for x in k2)
+    assert all(0 < x["bound_ms"] <= x["brute_bound_ms"] for x in k2)
+    assert all(0 < x["cone_pairs"] <= x["pairs"] for x in k2)
+    # the cull keeps few triangles a block of the heatmap's rays and of the
+    # frame's, all of them where the rays share no origin
+    assert all(k2[i]["survivors_per_block"]["mean"] < 0.2 * 1280 for i in (0, 2))
+    assert k2[3]["survivors_per_block"] == {"mean": 1280.0, "max": 1280}
     cap = next(x for x in lines if x.get("phase") == "capture")
     assert cap["a"]["refine_fitness"] >= 0.9 and cap["a"]["defect_points"] > 0
     assert [c["frame"] for c in cap["b"]["captures"]] == [0, 2]

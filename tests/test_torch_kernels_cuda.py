@@ -14,6 +14,7 @@ from sixdof_tpu_torch.ops.geometry import compute_crop_window_tf_batch
 from sixdof_tpu_torch.ops.hypotheses import make_rotation_grid
 from sixdof_tpu_torch.ops.rasterize import make_mesh_arrays, render_batch, zbuffer_setup
 from torch_raster_cases import ADVERSARIAL, adversarial_case, empty_case
+from torch_ray_cases import HAND_PLACED, scene_case, to_torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MESH = os.path.join(REPO, "demo_data", "synth_box", "mesh", "model_scaled_down.obj")
@@ -157,3 +158,52 @@ def test_ray_mesh_kernel_edge_cases(card):
         k2.ray_mesh_intersect(o, d, m, tris[:, :8])
     with pytest.raises(ValueError):
         k2.ray_mesh_intersect(o, d.t().contiguous().t(), m, tris)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", [*HAND_PLACED, "scene"])
+def test_ray_mesh_kernel_matches_plain_on_hand_placed_rays(card, name):
+    """The cull test's edges (tests/torch_ray_cases.py): grazing rays with
+    |det| just above 1e-12, hits inside the 1e-6 slack, blocks outside one
+    edge each, shared edges and vertices, ulp-thin slivers, rays from inside
+    the mesh, masked triangles and rays, a list refilled past 512 entries,
+    rays that do not share an origin, and the frame at every 4th pixel."""
+    case = scene_case(4) if name == "scene" else HAND_PLACED[name]()
+    o, d, m, tris = to_torch(case, card)
+    before = k2.ray_mesh_intersect.launches
+    tk = k2.ray_mesh_intersect(o, d, m, tris)
+    assert k2.ray_mesh_intersect.launches == before + 1
+    tp = k2.ray_mesh_intersect_plain(o, d, m, tris)
+    torch.cuda.synchronize()
+    assert torch.equal(tk, tp)
+    assert torch.isinf(tk[~m]).all()
+
+
+@pytest.mark.cuda
+def test_ray_mesh_kernel_counts_one_launch_a_call(card):
+    o, d, m, tris = _k2_case(card, 587, seed=2)
+    before = k2.ray_mesh_intersect.launches
+    for _ in range(5):
+        k2.ray_mesh_intersect(o, d, m, tris)
+    torch.cuda.synchronize()
+    assert k2.ray_mesh_intersect.launches == before + 5
+
+
+@pytest.mark.cuda
+def test_ray_mesh_kernel_resources(card, tmp_path):
+    """nvcc's report for K2 (printed): registers, stack and shared memory.
+    Shared memory stays under the 48 KB a block gets without opting in, and
+    the registers leave room for two blocks of 256 threads an SM."""
+    import re
+    import subprocess
+
+    from sixdof_tpu_torch.kernels import build
+
+    out = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(tmp_path / "k2.so"),
+                          k2.LIBRARY.source], capture_output=True, text=True, check=True)
+    report = out.stdout + out.stderr
+    print(report)
+    regs = [int(n) for n in re.findall(r"Used (\d+) registers", report)]
+    smem = [int(n) for n in re.findall(r"(\d+) bytes smem", report)]
+    assert regs and max(regs) <= 128
+    assert smem and max(smem) <= 48 * 1024

@@ -10,7 +10,6 @@ behaviours of the reference)."""
 import numpy as np
 import torch
 
-import sixdof_tpu_torch.models.predict as t_predict
 from torch_parity_setup import TRACK_ITERS, engines, load_predictors, register_both, rot_deg
 
 # The suite runs in several worker processes at once (pytest-xdist): one torch
@@ -20,12 +19,13 @@ torch.set_num_threads(1)
 # The cascades agree to 1.5e-6 in the sorted poses and 3e-5 in the scores
 # on the CPU (float32 sums in another order); bounds about 30x that.
 POSES_ATOL, SCORES_ATOL = 5e-5, 1e-3
-# The track step, fed the JAX program's filtered depth: 6.8e-5 deg and
-# 2.2e-7 m after two frames on the CPU; bounds about 15x that.
+# The track step, which decodes and filters the frame as the JAX track
+# program does (tests/test_torch_track_decode.py): 4.6e-5 and 9.4e-5 deg,
+# 7.1e-8 and 2.1e-7 m after frames 1 and 2 on the CPU; bounds 10x and more.
 TRACK_ROT_DEG, TRACK_TRANS_M = 1e-3, 5e-6
 
 
-def test_cascade_and_track_match_jax(tmp_path, monkeypatch):
+def test_cascade_and_track_match_jax(tmp_path):
     jest, test, reader = engines(load_predictors(), "synth_clutter", tmp_path)
     register_both(jest, test, reader)
     np.testing.assert_allclose(test.scores, jest.scores, atol=SCORES_ATOL)
@@ -39,27 +39,6 @@ def test_cascade_and_track_match_jax(tmp_path, monkeypatch):
         est._crop_size = None
         est._pose_hist.clear()
         est._last_center_px = None
-    # The JAX track program fuses erode + bilateral into one XLA computation
-    # whose bilateral keeps edge pixels that the standalone filter (which the
-    # port follows) zeroes: 1.8-3.3 deg a frame here.  That is the
-    # reference's own behaviour (ROADMAP.md), so the port's track step is
-    # fed the depth the JAX program filtered for the same frame.
-    filtered = {}
-    get_exec = jest._get_track_exec
-
-    def capturing_exec(*args, **kwargs):
-        comp = get_exec(*args, **kwargs)
-
-        def run(*a, **kw):
-            pose, depth = comp(*a, **kw)
-            filtered["depth"] = np.asarray(depth)
-            return pose, depth
-        return run
-
-    monkeypatch.setattr(jest, "_get_track_exec", capturing_exec)
-    monkeypatch.setattr(t_predict, "bilateral_filter_depth",
-                        lambda depth, radius: torch.tensor(filtered["depth"]).reshape(
-                            depth.shape))
     K = reader.color_K
     for i in (1, 2):
         color, depth = reader.get_color(i), reader.get_depth(i)
