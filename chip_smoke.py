@@ -24,8 +24,9 @@ non-zero without printing the final result:
   pose     the pose server at full width (252 hypotheses, 96x96 coarse
            phase, 160x160 refine and score, 5 register iterations, depth
            polish, then track_one with 2 iterations and the track polish on
-           frames 1-5) with seeded networks, through the kernel; then the
-           same loop with the plain raster, which must agree
+           frames 1-5) with the bundled networks (weights_torch/, the numpy
+           export of weights/; missing weights fail the run), through the
+           kernel; then the same loop with the plain raster, which must agree
   k2       ray-mesh kernel K2 against its plain version at four shapes:
            the capture's heatmap rays (587 x 1280 triangles of model.obj
            posed by the annotated pose), 8192 seeded rays (MAX_DEFECT_RAYS,
@@ -35,17 +36,26 @@ non-zero without printing the final result:
            time) and plain timings, the bound from the pairs whose direction
            lies in the triangle's enlarged cone beside the brute-force
            bound, and the triangles each block keeps (mean, max)
+  accuracy the pose phase's kernel run against annotated_poses/ (ADD-S,
+           ADD, their AUC, rotation and translation error, register and
+           track apart), refine_pose_with_icp from the registered pose
+           (fitness, ADD-S) and the frame-0 defect ray trace through K2
+           (median distance to the mesh), each beside the JAX package's
+           PARITY_r5.json value and held to tools/parity_check.py's synth_box
+           ceilings
   capture  (a) refine_pose_with_icp from the annotated pose of frame 0, the
            frame-0 defect ray trace and one async capture on frame 2;
            (b) the port's run loop (sixdof_tpu_torch/app/run.py::main) on
-           frames 0-5 with async captures every 2 frames (3 K2 launches);
-           then (a) and (b) again through K2's plain version, which must give
-           the same transforms and defect points
+           frames 0-5 with async captures every 2 frames (3 K2 launches),
+           whose ICP results must register (fitness >= 0.9); then (a) and
+           (b) again through K2's plain version, which must give the same
+           transforms and defect points
   kernels  each kernel the run launched, with its check and numbers
 
 The last line is {"ok": true, "device": {...}}.  Without CUDA the script
 exits 1 before any result.  `run(device="cpu", small=True)` rehearses every
-phase at a tiny size through the plain versions
+phase at a tiny size through the plain versions, where the accuracy
+ceilings and the loop's fitness are reported but not held
 (tests/test_torch_chip_smoke.py).
 """
 from __future__ import annotations
@@ -81,6 +91,12 @@ K2_T_ATOL = 0.0
 CAPTURE_MIN_FITNESS = 0.9
 CAPTURE_TF_ATOL = 0.0
 CAPTURE_PTS_ATOL = 0.0
+# accuracy on synth_box: tools/parity_check.py's ceilings (about 2x the JAX
+# package's PARITY_r5.json values)
+ACCURACY_CEILINGS = {"adds_mean_m": 0.005, "rot_err_deg_mean": 6.0, "icp_adds_mm": 4.0,
+                     "defect_surface_median_dist_mm": 5.0,
+                     "defect_to_annotated_mesh_median_mm": 5.0}
+WEIGHTS = os.path.join(REPO, "weights_torch")
 
 
 def emit(obj):
@@ -316,7 +332,9 @@ def phase_pose(device, cfg, small, n_frames, plain_raster, refiner, scorer, warm
     return dict(n_hypotheses=n_hypo, register_s=register_s, track_ms=track_ms,
                 register_launches=register_launches, track_launches=track_launches,
                 launches=total_launches, adds_m=adds, poses=poses,
-                top_score=float(est.scores[0]), scores=est.scores)
+                top_score=float(est.scores[0]), scores=est.scores,
+                centred_pts=np.asarray(est.pts, dtype=np.float64), model_center=est.model_center,
+                diameter=est.diameter)
 
 
 def _cone_pairs(o, d, valid, tris, chunk):
@@ -453,6 +471,72 @@ def _surface_median_mm(points, mesh, n_sample=200_000):
         return float("nan")
     surf = mesh.sample_points(n_sample, seed=0).points
     return float(np.median(cKDTree(surf).query(points, workers=-1)[0]))
+
+
+def phase_accuracy(device, scene, small, pose):
+    """The pose phase's kernel run (frames 0-5) against the annotated poses,
+    ICP from the registered pose, and the defect ray trace on the mesh it
+    posed, as tools/parity_check.py measures them for PARITY_r5.json."""
+    import numpy as np
+    from scipy.spatial import cKDTree
+
+    from sixdof_tpu_torch.app.defect_projection import ray_tracing
+    from sixdof_tpu_torch.app.icp_pipeline import refine_pose_with_icp
+    from sixdof_tpu_torch.io.readers import DataReader
+    from sixdof_tpu_torch.metrics import add_err, adds_err, compute_auc, rotation_angle_deg
+
+    reader = DataReader(scene)
+    model = pose["centred_pts"] + pose["model_center"]  # the original mesh frame
+    per_frame = []
+    for i, p in enumerate(pose["poses"]):
+        gt = reader.get_gt_pose(i)
+        per_frame.append(dict(adds_m=adds_err(p, gt, model), add_m=add_err(p, gt, model),
+                              rot_err_deg=rotation_angle_deg(p[:3, :3], gt[:3, :3]),
+                              t_err_m=float(np.linalg.norm(p[:3, 3] - gt[:3, 3]))))
+    mean = {k: float(np.mean([f[k] for f in per_frame])) for k in per_frame[0]}
+    m = {"adds_mean_m": mean["adds_m"], "add_mean_m": mean["add_m"],
+         "adds_auc_0.1d": compute_auc([f["adds_m"] for f in per_frame],
+                                      max_val=0.1 * pose["diameter"]),
+         "rot_err_deg_mean": mean["rot_err_deg"], "t_err_m_mean": mean["t_err_m"]}
+    for stage, frames in (("register", per_frame[:1]), ("track", per_frame[1:])):
+        for k in per_frame[0]:
+            m[f"{stage}_{k}_mean"] = float(np.mean([f[k] for f in frames]))
+
+    params = _icp_parameters(reader.parameters, small)
+    init = reader.color_to_depth @ reader.scale_translation_to_millimeters(pose["poses"][0])
+    _, icp, _, _ = refine_pose_with_icp(reader.get_source(0), reader.target, reader.background,
+                                        init, params, device=device)
+    gt_mm = reader.color_to_depth @ reader.scale_translation_to_millimeters(reader.get_gt_pose(0))
+    icp_pose = np.linalg.inv(icp.transformation)
+    m.update(icp_fitness=icp.fitness, icp_rmse_mm=icp.inlier_rmse,
+             icp_rot_err_deg=rotation_angle_deg(icp_pose[:3, :3], gt_mm[:3, :3]),
+             icp_t_err_mm=float(np.linalg.norm(icp_pose[:3, 3] - gt_mm[:3, 3])),
+             # parity_check's point set: the centred model points, in mm
+             icp_adds_mm=adds_err(icp_pose, gt_mm, pose["centred_pts"] * 1000.0))
+
+    posed = reader.target_mesh.copy()
+    posed.transform(np.linalg.inv(icp.transformation))
+    heatmap, _ = reader.get_heatmap()
+    pcd, traced = ray_tracing(reader.base_dir, posed, heatmap, reader.color_pinhole,
+                              heatmap_threshold=0.75, device=device)
+    gt_posed = reader.target_mesh.copy()
+    gt_posed.transform(reader.scale_translation_to_millimeters(reader.get_gt_pose(0)))
+    m.update(defect_pts=len(pcd),
+             defect_surface_median_dist_mm=(
+                 float(np.median(cKDTree(traced.vertices).query(pcd.points, k=1)[0]))
+                 if len(pcd) else float("nan")),
+             defect_to_annotated_mesh_median_mm=_surface_median_mm(pcd.points, gt_posed))
+
+    with open(os.path.join(REPO, "PARITY_r5.json")) as f:
+        ref = json.load(f)["scenes"]["synth_box"]
+    report = {k: {"card": v, "jax_parity_r5": ref.get(k), "ceiling": ACCURACY_CEILINGS.get(k)}
+              for k, v in m.items()}
+    emit({"phase": "accuracy", "frames": len(per_frame), "metrics": report})
+    breaches = [f"{k}={m[k]:.4g} > {c}" for k, c in ACCURACY_CEILINGS.items()
+                if not m[k] <= c]  # nan breaches too
+    if breaches and not small:
+        raise RuntimeError(f"accuracy on synth_box above its ceilings: {breaches}")
+    return m
 
 
 def _capture_once(device, scene, small, plain):
@@ -624,6 +708,8 @@ def phase_capture(device, cfg, scene, small, refiner, scorer):
                            f"expected {expect_launches}")
     if len(b["captures"]) != expect_launches or min(b["defect_points"]) == 0:
         raise RuntimeError(f"the run loop did not consume its captures: {strip(b)}")
+    if not small and min(c["fitness"] for c in b["captures"]) < CAPTURE_MIN_FITNESS:
+        raise RuntimeError(f"the run loop's captures did not register: {b['captures']}")
     if max(vs_plain["capture_tf_max_abs_diff"], vs_plain["loop_tf_max_abs_diff"]) \
             > CAPTURE_TF_ATOL or max(vs_plain["capture_pts_max_abs_diff_mm"],
                                      vs_plain["loop_pts_max_abs_diff_mm"]) > CAPTURE_PTS_ATOL:
@@ -703,16 +789,25 @@ def run(device="cuda", small=False):
              for label, (B, hw) in zip(labels, sizes)]
     k1 = phase_k1(dev, cases, K, diameter, n_time=2 if small else 50)
 
-    # the pose server, through the kernel, then through the plain raster
-    refiner = PoseRefinePredictor(dev, cfg={"input_resize": cfg.input_resize}, seed=0)
-    scorer = ScorePredictor(dev, cfg={"input_resize": cfg.input_resize}, seed=1)
+    # the pose server on the bundled networks, through the kernel, then
+    # through the plain raster
+    nets = []
+    for cls, net in ((PoseRefinePredictor, "refiner"), (ScorePredictor, "scorer")):
+        pred = cls(dev, cfg={"input_resize": cfg.input_resize},
+                   ckpt_dir=os.path.join(WEIGHTS, f"{net}.npz"))
+        if pred.ckpt_path is None:
+            raise RuntimeError(f"no exported {net} weights under {WEIGHTS}: "
+                               "JAX_PLATFORMS=cpu python tools/export_torch_weights.py")
+        nets.append(pred)
+    refiner, scorer = nets
     n_frames = 2 if small else 5
     kern = phase_pose(dev, cfg, small, n_frames, False, refiner, scorer, warmup=on_card)
     plain = phase_pose(dev, cfg, small, n_frames, True, refiner, scorer, warmup=False)
     rot = [_rot_deg(a[:3, :3], b[:3, :3]) for a, b in zip(kern["poses"], plain["poses"])]
     trans = [float(np.linalg.norm(a[:3, 3] - b[:3, 3]))
              for a, b in zip(kern["poses"], plain["poses"])]
-    report = {k: v for k, v in kern.items() if k not in ("poses", "scores")}
+    report = {k: v for k, v in kern.items()
+              if k not in ("poses", "scores", "centred_pts", "model_center")}
     emit({"phase": "pose", **report, "plain_register_s": plain["register_s"],
           "plain_track_ms": plain["track_ms"], "vs_plain_rot_deg": rot,
           "vs_plain_trans_m": trans, "top_score": kern["top_score"],
@@ -725,8 +820,9 @@ def run(device="cuda", small=False):
                            f"rot {rot} deg, trans {trans} m, top score "
                            f"{kern['top_score']} vs {plain['top_score']}")
 
-    # K2 at the capture's shapes, then the capture path and the run loop
+    # K2 at the capture's shapes, accuracy, then the capture path and the run loop
     k2 = phase_k2(dev, scene, small, n_time=2 if small else 50)
+    phase_accuracy(dev, scene, small, kern)
     cap = phase_capture(dev, cfg, scene, small, refiner, scorer)
 
     main_shape = k1[0]

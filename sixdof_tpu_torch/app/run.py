@@ -17,8 +17,10 @@ What the viewer would show (the accumulated defect clouds in the depth
 camera's frame and the posed mesh) is kept on a `LoopState` the caller may
 pass.  Not ported: the Dash viewer, the overlay images and debug drawing,
 the `--icp` global-registration path, the live Kinect reader and the TPU
-compile-hiding threads.  The networks are built from a seed (the bundled
-checkpoints are orbax files the port does not read).
+compile-hiding threads.  The networks load `--refiner_ckpt` and
+`--scorer_ckpt`, by default the numpy export of the bundled weights
+(`weights_torch/`, written by `tools/export_torch_weights.py`) when it
+exists, else they start from a seed, as the JAX app does with `weights/`.
 """
 from __future__ import annotations
 
@@ -43,6 +45,8 @@ from .icp_pipeline import (CaptureContext, capture_event, capture_event_async,
                            preprocess_source, refine_pose_with_icp)
 
 HEATMAP_THRESHOLD = 0.75
+WEIGHTS_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))), "weights_torch")
 
 
 def transform_object(pcd_or_mesh, transformation):
@@ -90,8 +94,8 @@ class LoopState:
 def main(args, device=None, refiner=None, scorer=None, plain_raytrace=False, state=None):
     """Run the loop over the scene's frames; returns the per-frame wall times
     (seconds).  @device: None = the card (or `args.device`); @refiner/@scorer:
-    predictors to use instead of seeded ones; @plain_raytrace: K2's plain
-    version (a comparison run); @state: a LoopState to fill."""
+    predictors to use instead of those the arguments name; @plain_raytrace:
+    K2's plain version (a comparison run); @state: a LoopState to fill."""
     dev = resolve_device(device or getattr(args, "device", None))
     state = state if state is not None else LoopState()
     if not getattr(args, "no_server", True):
@@ -102,11 +106,17 @@ def main(args, device=None, refiner=None, scorer=None, plain_raytrace=False, sta
     debug_dir = args.debug_dir
     os.makedirs(f"{debug_dir}/ob_in_cam", exist_ok=True)
 
-    refiner = refiner if refiner is not None else PoseRefinePredictor(dev, seed=0)
-    scorer = scorer if scorer is not None else ScorePredictor(dev, seed=1)
+    if refiner is None:
+        refiner = PoseRefinePredictor(dev, ckpt_dir=_ckpt(args.refiner_ckpt, "refiner"))
+    if scorer is None:
+        scorer = ScorePredictor(dev, ckpt_dir=_ckpt(args.scorer_ckpt, "scorer"))
     est = FoundationPose(model_pts=mesh.vertices, model_normals=mesh.vertex_normals, mesh=mesh,
                          scorer=scorer, refiner=refiner, device=dev,
-                         prune_to=args.prune_to or None)
+                         prune_to=args.prune_to or None,
+                         prune_schedule=_parse_prune_schedule(args.prune_schedule),
+                         track_crop=bool(args.track_crop), polish_top=args.polish_top,
+                         polish_iters=args.polish_iters, depth_polish=bool(args.depth_polish),
+                         track_polish=bool(args.track_polish))
     if args.max_hypotheses and len(est.rot_grid) > args.max_hypotheses:
         step = len(est.rot_grid) // args.max_hypotheses
         est.rot_grid = est.rot_grid[::step][: args.max_hypotheses]
@@ -269,6 +279,12 @@ def main(args, device=None, refiner=None, scorer=None, plain_raytrace=False, sta
     return frame_times
 
 
+def _ckpt(path, net):
+    """@path, or the bundled export's file for @net when it exists."""
+    default = os.path.join(WEIGHTS_DIR, f"{net}.npz")
+    return path or (default if os.path.exists(default) else None)
+
+
 def build_parser():
     """The JAX app's CLI, less what the port does not run; defaults come
     from `PipelineConfig`."""
@@ -312,9 +328,40 @@ def build_parser():
                         help="cap the rotation grid")
     parser.add_argument("--track_pipeline", type=int, default=pc.track_pipeline,
                         help="tracked-pose readback pipeline depth (0 = sync every frame)")
+    parser.add_argument("--refiner_ckpt", type=str, default=pc.refiner_ckpt,
+                        help="refiner checkpoint (.npz export or .pth; default: "
+                             "weights_torch/refiner.npz when it exists, else a seed)")
+    parser.add_argument("--scorer_ckpt", type=str, default=pc.scorer_ckpt,
+                        help="scorer checkpoint (as --refiner_ckpt)")
+    parser.add_argument("--prune_schedule", type=str, default=pc.prune_schedule,
+                        help="coarse pruning stages as 'ITERSxKEEP,...' (e.g. '1x128,1x64'); "
+                             "overrides --prune_to's single two-iteration cut")
+    parser.add_argument("--polish_top", type=int, default=pc.polish_top,
+                        help="refine this many best hypotheses further after the final "
+                             "score and rank them alongside the originals (0 = off)")
+    parser.add_argument("--polish_iters", type=int, default=pc.polish_iters,
+                        help="refine iterations per polished hypothesis")
+    parser.add_argument("--track_crop", type=int, default=pc.track_crop,
+                        help="upload only a window around the tracked pose (1 = on)")
+    parser.add_argument("--depth_polish", type=int, default=pc.depth_polish,
+                        help="ICP-polish the registered pose against the masked observed "
+                             "cloud (1 = on)")
+    parser.add_argument("--track_polish", type=int, default=pc.track_polish,
+                        help="the same polish, guarded, after every track step (1 = on)")
     parser.add_argument("--device", type=str, default=None,
                         help="torch device (default: the CUDA card; 'cpu' on request)")
     return parser
+
+
+def _parse_prune_schedule(spec: str):
+    """'1x128,1x64' -> ((1, 128), (1, 64)); empty/None -> None."""
+    if not spec:
+        return None
+    stages = []
+    for part in spec.split(","):
+        iters, keep = part.lower().split("x")
+        stages.append((int(iters), int(keep)))
+    return tuple(stages)
 
 
 def cli(argv=None):

@@ -180,6 +180,15 @@ class PipelineConfig:
     # the app's FoundationPose arguments (sixdof_tpu/app/run.py defaults)
     prune_to: int = 64
     coarse_hw: Tuple[int, int] = (96, 96)
+    prune_schedule: str = ""  # "ITERSxKEEP,..." coarse stages; "" = prune_to's cut
+    polish_top: int = 0
+    polish_iters: int = 2
+    track_crop: int = 1
+    depth_polish: int = 1
+    track_polish: int = 1
+    # checkpoints: None = weights_torch/<net> when it exists, else a seed
+    refiner_ckpt: Optional[str] = None
+    scorer_ckpt: Optional[str] = None
     # the run loop (sixdof_tpu/app/run.py CLI): debug >= 1 syncs every
     # tracked pose to the host; 0 with track_pipeline > 0 keeps the pose
     # chain on the device and dispatches captures from it

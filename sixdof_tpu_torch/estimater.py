@@ -74,17 +74,30 @@ class PendingPose:
 class FoundationPose:
     def __init__(self, model_pts, model_normals, symmetry_tfs=None, mesh: TriMesh = None,
                  scorer: ScorePredictor = None, refiner: PoseRefinePredictor = None,
-                 device=None, prune_to=None, coarse_hw=(96, 96), plain_raster=False):
+                 device=None, prune_to=None, coarse_hw=(96, 96), prune_schedule=None,
+                 track_crop=True, polish_top=0, polish_iters=2, depth_polish=True,
+                 track_polish=True, plain_raster=False):
         """@prune_to: keep this many hypotheses after 2 coarse refine
         iterations over the full grid at @coarse_hw (None: no pruning).
+        @prune_schedule: (iters, keep) coarse stages in place of prune_to's
+        single cut (models/predict.py::register_pipeline).
+        @track_crop: upload only a window around the tracked pose.
+        @polish_top/@polish_iters: the cascade polish (0 disables).
+        @depth_polish: ICP-polish the registered top pose against the
+        masked observed cloud.  @track_polish: the same polish, guarded,
+        after every track step.
         @device: None = the CUDA card (raises without one), or e.g. "cpu".
         @plain_raster: render every hypothesis through the raster kernel's
-        plain PyTorch version instead of the kernel (a comparison run).
-        The JAX app's defaults are always on: the register depth polish, the
-        track polish and the track upload crop."""
+        plain PyTorch version instead of the kernel (a comparison run)."""
         self.device = resolve_device(device)
         self.plain_raster = bool(plain_raster)
         self.prune_to = prune_to
+        self.prune_schedule = tuple(tuple(s) for s in prune_schedule) if prune_schedule else None
+        self.polish_top = int(polish_top or 0)
+        self.polish_iters = int(polish_iters or 0)
+        self.depth_polish = bool(depth_polish)
+        self.track_polish = bool(track_polish)
+        self.track_crop = bool(track_crop)
         self.coarse_hw = tuple(coarse_hw) if coarse_hw is not None else None
         self.reset_object(model_pts, model_normals, symmetry_tfs=symmetry_tfs, mesh=mesh)
         self.make_rotation_grid(min_n_views=40, inplane_step=60)
@@ -227,7 +240,9 @@ class FoundationPose:
             prune_to=int(self.prune_to) if self.prune_to else 0, coarse_iters=2,
             iterations=int(iteration), out_hw=tuple(ref.cfg["input_resize"]),
             coarse_hw=self.coarse_hw, normalize_xyz=bool(ref.cfg["normalize_xyz"]),
-            rot_rep=ref.cfg["rot_rep"], score_mode=sc.cfg.get("score_mode", "hybrid"),
+            trans_rep=ref.cfg["trans_rep"], rot_rep=ref.cfg["rot_rep"],
+            score_mode=sc.cfg.get("score_mode", "hybrid"), prune_schedule=self.prune_schedule,
+            polish_top=self.polish_top, polish_iters=self.polish_iters,
             backface_cull=self.backface_cull, score_crop_ratio=float(sc.cfg["crop_ratio"]),
             score_normalize_xyz=bool(sc.cfg["normalize_xyz"]),
             score_hw=score_hw if score_hw != tuple(ref.cfg["input_resize"]) else None,
@@ -237,7 +252,8 @@ class FoundationPose:
         poses_np = poses_sorted.cpu().numpy().copy()
         scores_np = scores_sorted.cpu().numpy()
         logging.info(f"sorted scores (top5): {scores_np[:5]}")
-        poses_np[0] = self._depth_polish(poses_np[0], depth_np, ob_mask, K)
+        if self.depth_polish:
+            poses_np[0] = self._depth_polish(poses_np[0], depth_np, ob_mask, K)
         self.pose_last = poses_np[0]
         self._crop_pose_host = np.asarray(poses_np[0], dtype=np.float64)
         self._pose_hist.clear()
@@ -296,6 +312,13 @@ class FoundationPose:
                 old = old.centered()
             self._crop_pose_host = np.asarray(old, dtype=np.float64).reshape(4, 4)
 
+    def _track_polish_kwargs(self):
+        """The track polish's model sampling, or nothing when it is off."""
+        if not self.track_polish:
+            return {}
+        return dict(polish_tgt=self._polish_tgt_small, polish_tn=self._polish_tn_small,
+                    polish_tmask=self._polish_tmask_small)
+
     def track_one(self, rgb, depth, K, iteration, sync=True):
         """Single-hypothesis refinement from the previous frame's pose.
         @sync=False returns a PendingPose: the pose chain stays on the device
@@ -312,7 +335,7 @@ class FoundationPose:
         if depth_np.dtype != np.uint16:
             depth_np = np.clip(depth_np * 1000.0, 0, 65535).astype(np.uint16)
         K_use = np.asarray(K, dtype=np.float64)
-        win = self._crop_window(K_use, rgb_np.shape[:2])
+        win = self._crop_window(K_use, rgb_np.shape[:2]) if self.track_crop else None
         if win is not None:
             oy, ox, size = win
             rgb_np = rgb_np[oy : oy + size, ox : ox + size]
@@ -333,9 +356,8 @@ class FoundationPose:
             iterations=int(iteration), out_hw=tuple(ref.cfg["input_resize"]),
             normalize_xyz=bool(ref.cfg["normalize_xyz"]), rot_rep=ref.cfg["rot_rep"],
             backface_cull=self.backface_cull, occ_sub=ref.cfg.get("occ_sub", False),
-            polish_tgt=self._polish_tgt_small, polish_tn=self._polish_tn_small,
-            polish_tmask=self._polish_tmask_small, plain_raster=self.plain_raster,
-            compute_dtype=ref.compute_dtype)
+            plain_raster=self.plain_raster, compute_dtype=ref.compute_dtype,
+            trans_rep=ref.cfg["trans_rep"], **self._track_polish_kwargs())
         self.pose_last = pose  # the chain stays on the device
         if not sync:
             pending = PendingPose(pose, self.get_tf_to_centered_mesh())

@@ -1,4 +1,5 @@
-"""PNG decoding with numpy and zlib, standing in for ``cv2.imread(path, -1)``.
+"""PNG decoding with numpy and zlib, standing in for ``cv2.imread(path, -1)``,
+and a minimal writer of 8-bit greyscale images (``cv2.imwrite`` of a mask).
 
 Supports 8-bit gray, RGB and RGBA and 16-bit gray, non-interlaced, with
 all five row filters (the demo scenes use 8-bit RGB, 8-bit gray and 16-bit
@@ -81,3 +82,22 @@ def read_png(path):
     if ch == 3:
         return np.ascontiguousarray(img[..., ::-1])  # RGB -> BGR
     return np.ascontiguousarray(img[..., [2, 1, 0, 3]])  # RGBA -> BGRA
+
+
+def _chunk(ctype, body):
+    return (struct.pack(">I", len(body)) + ctype + body
+            + struct.pack(">I", zlib.crc32(ctype + body) & 0xFFFFFFFF))
+
+
+def write_png_gray8(path, img):
+    """Write a (H,W) uint8 image as an 8-bit greyscale PNG (no row filter)."""
+    img = np.ascontiguousarray(img)
+    if img.ndim != 2 or img.dtype != np.uint8:
+        raise ValueError(f"expected a (H,W) uint8 image, got {img.shape} {img.dtype}")
+    h, w = img.shape
+    rows = np.zeros((h, w + 1), dtype=np.uint8)  # filter type 0 before each row
+    rows[:, 1:] = img
+    data = (_SIG + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
+            + _chunk(b"IDAT", zlib.compress(rows.tobytes())) + _chunk(b"IEND", b""))
+    with open(path, "wb") as f:
+        f.write(data)

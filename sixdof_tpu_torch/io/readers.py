@@ -10,24 +10,28 @@ CAD mesh and defect heatmap (the capture path), of a scene laid out as
   masks/0000.png  annotated_poses/*.txt  background/box.ply
   mesh/{model.obj, model.ply}  heatmap/0002.npy
 
-PNG decoding is `io/png.py`, and resizing reimplements OpenCV's
-``INTER_NEAREST`` and ``INTER_LINEAR`` rules, so no OpenCV is needed.  The
-Otsu auto-mask (used by the JAX reader when masks/0000.png is missing), the
-colour crop that `get_heatmap` returns for the viewer's overlay, and the
-live Kinect reader are not ported.
+PNG decoding is `io/png.py`, and resizing, the grey conversion, Otsu's
+threshold and the morphology of the auto-mask reimplement OpenCV's rules in
+numpy, so no OpenCV is needed.  Frame i+1 is decoded on a background thread
+while frame i is in use, as the JAX reader does.  The colour crop that
+`get_heatmap` returns for the viewer's overlay and the live Kinect reader
+are not ported.
 """
 from __future__ import annotations
 
 import glob
 import json
+import logging
 import os
+import threading
 
 import numpy as np
+from scipy import ndimage
 
 from ..app.defect_projection import PinholeCameraIntrinsic, load_extrinsics
 from ..config import IcpConfig
 from .mesh_io import load_mesh, load_point_cloud
-from .png import read_png
+from .png import read_png, write_png_gray8
 
 
 def resize_nearest(img, width, height):
@@ -70,12 +74,68 @@ def resize_linear(img, width, height):
     return rows[y0] * b0[:, None] + rows[y1] * b1[:, None]
 
 
+def bgr_to_gray(img):
+    """``cv2.cvtColor(img, cv2.COLOR_BGR2GRAY)`` of a uint8 (H,W,3) image:
+    OpenCV's 15-bit fixed-point weights (gray_shift), rounded."""
+    b, g, r = (img[..., c].astype(np.int32) for c in range(3))
+    return ((b * 3735 + g * 19235 + r * 9798 + (1 << 14)) >> 15).astype(np.uint8)
+
+
+def otsu_threshold(gray):
+    """The threshold ``cv2.THRESH_OTSU`` picks for a uint8 image: the first
+    maximum of the between-class variance, in OpenCV's double-precision
+    order of operations."""
+    hist = np.bincount(gray.ravel(), minlength=256)
+    scale = 1.0 / gray.size
+    mu = float(np.arange(256) @ hist) * scale  # an exact integer sum, as in double
+    eps = float(np.finfo(np.float32).eps)
+    mu1 = q1 = max_sigma = 0.0
+    max_val = 0
+    for i in range(256):
+        p_i = float(hist[i]) * scale
+        mu1 *= q1
+        q1 += p_i
+        q2 = 1.0 - q1
+        if min(q1, q2) < eps or max(q1, q2) > 1.0 - eps:
+            continue
+        mu1 = (mu1 + i * p_i) / q1
+        mu2 = (mu - q1 * mu1) / q2
+        sigma = q1 * q2 * (mu1 - mu2) * (mu1 - mu2)
+        if sigma > max_sigma:
+            max_sigma, max_val = sigma, i
+    return max_val
+
+
+def otsu_mask(color):
+    """The JAX reader's auto-mask of a colour frame as cv2 computes it:
+    grey (COLOR_BGR2GRAY applied to the frame as given), Otsu threshold,
+    inverted, then a 3x3 open and a 3x3 close of 2 iterations each.  OpenCV
+    runs 2 iterations of a full 3x3 kernel as one 5x5 pass, and its default
+    border never wins a min or a max.  Returns 0/255 uint8."""
+    gray = bgr_to_gray(color)
+    refined = np.where(gray > otsu_threshold(gray), 0, 255).astype(np.uint8)
+
+    def erode(x):
+        return ndimage.minimum_filter(x, size=5, mode="constant", cval=255)
+
+    def dilate(x):
+        return ndimage.maximum_filter(x, size=5, mode="constant", cval=0)
+
+    return erode(dilate(dilate(erode(refined))))
+
+
 class DataReader:
     """Offline demo-data replay (reference datareader.py:508-792)."""
 
     def __init__(self, base_dir, shorter_side=None, zfar=np.inf, arguments=None):
         self.base_dir = base_dir
         self.zfar = zfar
+        # frames decoded ahead on a thread (_prefetched): kind -> {i: frame},
+        # kind -> {i: decoding thread}, kind -> the frame served last
+        self._pf_cache = {"color": {}, "depth": {}}
+        self._pf_inflight = {"color": {}, "depth": {}}
+        self._pf_served = {"color": None, "depth": None}
+        self._pf_lock = threading.Lock()
         self.parameters = self.update_config(arguments)
         self.color_files = sorted(glob.glob(f"{self.base_dir}/rgb/*.png"))
         if not self.color_files:
@@ -120,24 +180,76 @@ class DataReader:
             b = "depth" + b[3:]
         return os.path.join(d, b)
 
+    def _prefetched(self, kind, i, loader):
+        """Serve frame i of @kind, then start decoding frame i+1 on a daemon
+        thread, so the next read finds it decoded.  The cache keeps frames i
+        and i+1 only; a frame read twice (a capture frame) decodes once, and
+        a read of a frame still decoding waits for it."""
+        with self._pf_lock:
+            cache, inflight = self._pf_cache[kind], self._pf_inflight[kind]
+            worker = inflight.get(i)
+        if worker is not None:
+            worker.join()
+        with self._pf_lock:
+            val = cache.get(i)
+        if val is None:
+            val = loader(i)
+        nxt = i + 1
+        with self._pf_lock:
+            self._pf_served[kind] = i
+            cache[i] = val
+            for k in [k for k in cache if k < i or k > nxt]:
+                del cache[k]
+            if nxt < len(self.color_files) and nxt not in cache and nxt not in inflight:
+                # started under the lock: a thread that finds it in flight may join it
+                inflight[nxt] = threading.Thread(target=self._decode_ahead,
+                                                 args=(kind, nxt, loader), daemon=True)
+                inflight[nxt].start()
+        return val
+
+    def _decode_ahead(self, kind, i, loader):
+        try:
+            val = loader(i)
+            with self._pf_lock:
+                if self._pf_served[kind] == i - 1:  # else the reader moved on
+                    self._pf_cache[kind][i] = val
+        finally:  # a failed decode leaves no entry: the reader decodes again
+            with self._pf_lock:
+                del self._pf_inflight[kind][i]
+
     def get_color(self, i=0):
         """(H,W,3) uint8 RGB."""
+        return self._prefetched("color", i, self._load_color)
+
+    def get_depth(self, i=0):
+        """(H,W) float64 meters; <1 mm or >= zfar set to 0."""
+        return self._prefetched("depth", i, self._load_depth)
+
+    def _load_color(self, i):
         img = read_png(self.color_files[i])
         if img.ndim == 2:
             img = np.repeat(img[..., None], 3, axis=-1)
         rgb = np.ascontiguousarray(img[..., :3][..., ::-1])
         return resize_nearest(rgb, self.color_W, self.color_H)
 
-    def get_depth(self, i=0):
-        """(H,W) float64 meters; <1 mm or >= zfar set to 0."""
+    def _load_depth(self, i):
         depth = read_png(self._depth_path(self.color_files[i])) / 1e3
         depth = resize_nearest(depth, self.color_W, self.color_H)
         depth[(depth < 0.001) | (depth >= self.zfar)] = 0
         return depth
 
     def get_mask(self, color_image=None, i=None):
-        """masks/0000.png as a (H,W) uint8 0/1 mask."""
-        mask = read_png(f"{self.base_dir}/masks/0000.png")
+        """masks/0000.png as a (H,W) uint8 0/1 mask; where it is missing, the
+        Otsu auto-mask of @color_image, written back as masks/0000.png."""
+        path = f"{self.base_dir}/masks/0000.png"
+        if not os.path.exists(path):
+            logging.info(f"{path} not found: writing the Otsu auto-mask of the frame")
+            refined = otsu_mask(color_image)
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            write_png_gray8(path, refined)
+            return resize_nearest(refined, self.color_W, self.color_H).astype(bool).astype(
+                np.uint8)
+        mask = read_png(path)
         if mask.ndim == 3:
             for c in range(mask.shape[-1]):
                 if mask[..., c].sum() > 0:

@@ -15,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -54,6 +55,7 @@ class KernelLibrary:
         self._bind = bind
         self.lib = None
         self.info = {}
+        self._lock = threading.Lock()  # one build when threads first load at once
 
     def compile(self):
         """Start nvcc on the source unless its library exists; returns the
@@ -78,6 +80,12 @@ class KernelLibrary:
         @pending: what `compile()` returned, when the caller started it."""
         if self.lib is not None:
             return self.lib
+        with self._lock:
+            if self.lib is None:
+                self._load(pending)
+        return self.lib
+
+    def _load(self, pending):
         t0 = time.perf_counter()
         proc, so = pending if pending is not None else self.compile()
         log = ""
@@ -90,7 +98,6 @@ class KernelLibrary:
         self._bind(lib)
         self.info.update(library=so, seconds=time.perf_counter() - t0, ptxas=log)
         self.lib = lib
-        return lib
 
 
 def build_all(libraries):

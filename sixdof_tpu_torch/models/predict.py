@@ -33,6 +33,7 @@ from ..ops.icp import icp_point_to_plane
 from ..ops.lie import rotation_6d_to_matrix, so3_exp_map, so3_log_map
 from ..ops.rasterize import MeshArrays, render_batch
 from ..ops.warp import warp_crop_batch
+from . import checkpoint
 from .networks import RefineNet, ScoreNetMultiPair
 from .weights import refine_state_dict, score_state_dict
 
@@ -40,7 +41,8 @@ DEFAULT_REFINER_CFG = dict(
     input_resize=(160, 160),
     crop_ratio=1.2,
     c_in=6,
-    rot_rep="axis_angle",  # or "6d"; translation is the tracknet form
+    trans_rep="tracknet",  # or "deepim" (z-scaled image-space offsets)
+    rot_rep="axis_angle",  # or "6d"
     normalize_xyz=False,
     trans_normalizer=0.02,
     rot_normalizer=0.3490658503988659,  # 20 deg
@@ -116,30 +118,53 @@ def _make_AB(mesh, poses, rgb01, xyz_map, K, crop_ratio, mesh_diameter, out_hw,
     return A, B, tf_to_crops, rend
 
 
+def _deepim_trans_delta(trans, poses, tf_to_crops, K, out_hw):
+    """DeepIM's translation decode: a crop-pixel offset of the projected
+    centre (scaled by the input size) and a multiplicative depth."""
+    centers = poses[:, :3, 3]
+    z_pred = trans[:, 2] * centers[:, 2]
+    ones = torch.ones_like(z_pred)[:, None]
+    uvs = torch.einsum("ij,bj->bi", K, centers)
+    uvs = uvs / uvs[:, 2:3]
+    uvA_crop = torch.einsum("bij,bj->bi", tf_to_crops, uvs)[:, :2]
+    uv_pred_crop = uvA_crop + trans[:, :2] * out_hw[0]
+    uv_pred = torch.einsum("bij,bj->bi", torch.linalg.inv(tf_to_crops),
+                           torch.cat([uv_pred_crop, ones], dim=-1))
+    uv_pred = uv_pred[:, :2] / uv_pred[:, 2:3]
+    ray = torch.einsum("ij,bj->bi", torch.linalg.inv(K), torch.cat([uv_pred, ones], dim=-1))
+    return ray * z_pred[:, None] - centers
+
+
 @torch.no_grad()
 def refine_poses(model, mesh: MeshArrays, poses, rgb01, xyz_map, K, mesh_diameter, crop_ratio,
                  trans_normalizer, rot_normalizer, iterations: int, out_hw=(160, 160),
                  normalize_xyz=False, rot_rep="axis_angle", backface_cull=False, occ_sub=False,
-                 plain_raster=False, compute_dtype=torch.bfloat16):
-    """`iterations` render -> compare -> update refinement steps (tracknet
-    translation: tanh-bounded by trans_normalizer, or raw when xyz inputs
-    are normalized)."""
+                 plain_raster=False, compute_dtype=torch.bfloat16, trans_rep="tracknet"):
+    """`iterations` render -> compare -> update refinement steps.  The
+    translation is decoded as @trans_rep: "tracknet" (tanh-bounded by
+    trans_normalizer, raw when xyz inputs are normalized) or "deepim"."""
     poses = poses.float()
     for _ in range(iterations):
-        A, B, _, _ = _make_AB(
+        A, B, tf_to_crops, _ = _make_AB(
             mesh, poses, rgb01, xyz_map, K, crop_ratio, mesh_diameter, out_hw, normalize_xyz,
             invalid_z_thresh=0.001, backface_cull=backface_cull, occ_sub=occ_sub,
             plain_raster=plain_raster)
         with network_autocast(poses.device, compute_dtype):
             out = model(A, B)
-        trans_delta = out["trans"] if normalize_xyz else torch.tanh(out["trans"]) * trans_normalizer
+        if trans_rep == "tracknet":
+            trans_delta = (out["trans"] if normalize_xyz
+                           else torch.tanh(out["trans"]) * trans_normalizer)
+        elif trans_rep == "deepim":
+            trans_delta = _deepim_trans_delta(out["trans"], poses, tf_to_crops, K, out_hw)
+        else:
+            trans_delta = out["trans"]
         if rot_rep == "axis_angle":
             rot_mat_delta = so3_exp_map(torch.tanh(out["rot"]) * rot_normalizer).transpose(-1, -2)
         elif rot_rep == "6d":
             rot_mat_delta = rotation_6d_to_matrix(out["rot"]).transpose(-1, -2)
         else:
             raise ValueError(rot_rep)
-        if normalize_xyz:
+        if normalize_xyz:  # a global post-scale, whatever the translation form
             trans_delta = trans_delta * (mesh_diameter / 2.0)
         poses = egocentric_delta_pose_to_pose(poses, trans_delta, rot_mat_delta)
     return poses
@@ -192,12 +217,19 @@ def score_poses(model, mesh: MeshArrays, poses, rgb01, xyz_map, K, mesh_diameter
 def register_pipeline(rmodel, smodel, mesh: MeshArrays, poses, rgb01, depth, K, mesh_diameter,
                       crop_ratio, trans_normalizer, rot_normalizer, prune_to, coarse_iters,
                       iterations, out_hw=(160, 160), coarse_hw=None, normalize_xyz=False,
-                      rot_rep="axis_angle", score_mode="hybrid", backface_cull=False,
-                      score_crop_ratio=None, score_normalize_xyz=None, score_hw=None,
+                      trans_rep="tracknet", rot_rep="axis_angle", score_mode="hybrid",
+                      backface_cull=False, prune_schedule=None, score_crop_ratio=None,
+                      score_normalize_xyz=None, score_hw=None, polish_top=0, polish_iters=0,
                       occ_sub=False, plain_raster=False, compute_dtype=torch.bfloat16):
     """The registration cascade: refine the full grid for coarse_iters at
     coarse_hw -> score -> keep the prune_to best -> refine the rest of the
-    iterations at out_hw -> score -> sort.
+    iterations at out_hw -> score -> (cascade polish) -> sort.
+    @prune_schedule: (iters, keep) coarse stages in place of the single
+    (coarse_iters, prune_to) cut; a stage is skipped when it would keep
+    every pose or use up the iterations; coarse stages score at coarse_hw.
+    @polish_top/@polish_iters: refine the polish_top best a further
+    polish_iters iterations and rank them alongside the originals
+    (polished first, so equal scores prefer them).
     @depth: already-filtered depth.  Returns (sorted_poses (K,4,4), sorted_scores (K,))."""
     xyz_map = depth2xyzmap(depth, K)
     n = poses.shape[0]
@@ -207,25 +239,35 @@ def register_pipeline(rmodel, smodel, mesh: MeshArrays, poses, rgb01, depth, K, 
     def refine(p, iters, hw):
         return refine_poses(rmodel, mesh, p, rgb01, xyz_map, K, mesh_diameter, crop_ratio,
                             trans_normalizer, rot_normalizer, iters, hw, normalize_xyz,
-                            rot_rep, occ_sub=occ_sub, **common)
+                            rot_rep, occ_sub=occ_sub, trans_rep=trans_rep, **common)
 
     s_crop = crop_ratio if score_crop_ratio is None else score_crop_ratio
     s_norm = normalize_xyz if score_normalize_xyz is None else score_normalize_xyz
+    final_hw = out_hw if score_hw is None else score_hw
 
     def score(p, hw):
         return score_poses(smodel, mesh, p, rgb01, xyz_map, K, mesh_diameter, s_crop, hw,
                            s_norm, score_mode, **common)
 
-    if prune_to and prune_to < n and iterations > coarse_iters:
+    def best_first(s):  # descending, equal scores in index order (lax.top_k's order)
+        return torch.argsort(-s, stable=True)
+
+    if prune_schedule is None and prune_to and prune_to < n and iterations > coarse_iters:
+        prune_schedule = ((coarse_iters, prune_to),)
+    for stage_iters, keep_k in prune_schedule or ():
+        if keep_k >= poses.shape[0] or iterations <= stage_iters:
+            continue
         chw = coarse_hw or out_hw
-        poses = refine(poses, coarse_iters, chw)
-        # descending, equal scores in index order (lax.top_k's order)
-        keep = torch.argsort(-score(poses, chw), stable=True)[:prune_to]
-        poses = poses[keep]
-        iterations = iterations - coarse_iters
+        poses = refine(poses, stage_iters, chw)
+        poses = poses[best_first(score(poses, chw))[:keep_k]]
+        iterations = iterations - stage_iters
     poses = refine(poses, iterations, out_hw)
-    scores = score(poses, out_hw if score_hw is None else score_hw)
-    order = torch.argsort(-scores, stable=True)
+    scores = score(poses, final_hw)
+    if polish_top and polish_iters and polish_top <= poses.shape[0]:
+        polished = refine(poses[best_first(scores)[:polish_top]], polish_iters, out_hw)
+        poses = torch.cat([polished, poses])
+        scores = torch.cat([score(polished, final_hw), scores])
+    order = best_first(scores)
     return poses[order], scores[order]
 
 
@@ -252,7 +294,7 @@ def track_pose(model, mesh: MeshArrays, pose_last, rgbd_u8, K, mesh_diameter, cr
                trans_normalizer, rot_normalizer, iterations: int, out_hw=(160, 160),
                normalize_xyz=False, rot_rep="axis_angle", backface_cull=False, occ_sub=False,
                polish_tgt=None, polish_tn=None, polish_tmask=None, plain_raster=False,
-               compute_dtype=torch.bfloat16):
+               compute_dtype=torch.bfloat16, trans_rep="tracknet"):
     """One tracking step on the device: unpack -> depth erode + bilateral ->
     xyz map -> refine -> (track polish).  @rgbd_u8: (H,W,5) uint8 tensor from
     pack_rgbd.  Returns (pose (1,4,4), filtered depth)."""
@@ -262,7 +304,7 @@ def track_pose(model, mesh: MeshArrays, pose_last, rgbd_u8, K, mesh_diameter, cr
     xyz_map = depth2xyzmap(depth, K)
     poses = refine_poses(model, mesh, pose_last, rgb01, xyz_map, K, mesh_diameter, crop_ratio,
                          trans_normalizer, rot_normalizer, iterations, out_hw, normalize_xyz,
-                         rot_rep, backface_cull, occ_sub, plain_raster, compute_dtype)
+                         rot_rep, backface_cull, occ_sub, plain_raster, compute_dtype, trans_rep)
     if polish_tgt is not None:
         poses = _track_depth_polish(mesh, poses, rgb01, xyz_map, K, crop_ratio, polish_tgt,
                                     polish_tn, polish_tmask, mesh_diameter, backface_cull,
@@ -333,39 +375,51 @@ def _seeded_init(model: torch.nn.Module, generator: torch.Generator):
 
 
 class _PredictorBase:
-    def _build(self, model, params, seed, convert, device):
+    def _setup(self, net, defaults, cfg, device, compute_dtype, ckpt_dir):
+        self.cfg = dict(defaults)
+        self.device = resolve_device(device)
+        self.compute_dtype = compute_dtype
+        self.ckpt_path = checkpoint.resolve(ckpt_dir, net)
+        if self.ckpt_path is not None:
+            # the checkpoint's training-time cfg (the JAX predictor's OCC_SUB
+            # marker), unless the caller sets the same keys
+            self.cfg.update(checkpoint.cfg_overrides(self.ckpt_path, net))
+        if cfg:
+            self.cfg.update(cfg)
+
+    def _build(self, model, net, params, seed, convert, ckpt_dir):
         if params is not None:
             model.load_state_dict(convert(params))
         else:
-            _seeded_init(model, torch.Generator().manual_seed(int(seed)))
-        return model.to(device).eval()
+            sd = checkpoint.load_params(ckpt_dir, net, self.compute_dtype)
+            if sd is not None:
+                model.load_state_dict(sd)
+            else:
+                _seeded_init(model, torch.Generator().manual_seed(int(seed)))
+        return model.to(self.device).eval()
 
 
 class PoseRefinePredictor(_PredictorBase):
-    """Refiner: @params is the JAX parameter tree as numpy arrays (converted
-    through models/weights.py), or None for a seeded initialisation.
-    @device: None = the CUDA card (raises without one), or e.g. "cpu"."""
+    """Refiner.  Weights, first match: @params, the JAX parameter tree as
+    numpy arrays (converted through models/weights.py); @ckpt_dir, an
+    export or `.pth` checkpoint (models/checkpoint.py); else a seeded
+    initialisation.  @device: None = the CUDA card (raises without one),
+    or e.g. "cpu"."""
 
     def __init__(self, device=None, cfg: Optional[dict] = None, params=None, seed=0,
-                 compute_dtype=torch.bfloat16):
-        self.cfg = dict(DEFAULT_REFINER_CFG)
-        if cfg:
-            self.cfg.update(cfg)
-        self.device = resolve_device(device)
-        self.compute_dtype = compute_dtype
+                 compute_dtype=torch.bfloat16, ckpt_dir=None):
+        self._setup("refiner", DEFAULT_REFINER_CFG, cfg, device, compute_dtype,
+                    None if params is not None else ckpt_dir)
         self.model = self._build(RefineNet(c_in=self.cfg["c_in"], rot_rep=self.cfg["rot_rep"]),
-                                 params, seed, refine_state_dict, self.device)
+                                 "refiner", params, seed, refine_state_dict, ckpt_dir)
 
 
 class ScorePredictor(_PredictorBase):
-    """Scorer: @params as for PoseRefinePredictor."""
+    """Scorer: weights and @device as for PoseRefinePredictor."""
 
     def __init__(self, device=None, cfg: Optional[dict] = None, params=None, seed=1,
-                 compute_dtype=torch.bfloat16):
-        self.cfg = dict(DEFAULT_SCORER_CFG)
-        if cfg:
-            self.cfg.update(cfg)
-        self.device = resolve_device(device)
-        self.compute_dtype = compute_dtype
-        self.model = self._build(ScoreNetMultiPair(c_in=self.cfg["c_in"]), params, seed,
-                                 score_state_dict, self.device)
+                 compute_dtype=torch.bfloat16, ckpt_dir=None):
+        self._setup("scorer", DEFAULT_SCORER_CFG, cfg, device, compute_dtype,
+                    None if params is not None else ckpt_dir)
+        self.model = self._build(ScoreNetMultiPair(c_in=self.cfg["c_in"]), "scorer", params,
+                                 seed, score_state_dict, ckpt_dir)

@@ -1,7 +1,7 @@
 """chip_smoke.py rehearsed on the CPU at a tiny size: every phase runs (K1
-and K2 through their plain versions, the pose server twice, the capture
-path and the run loop twice) and the kernels line has the keys the card run
-reports."""
+and K2 through their plain versions, the pose server twice on the bundled
+weights, the accuracy phase, the capture path and the run loop twice) and
+the kernels line has the keys the card run reports."""
 import json
 import os
 import sys
@@ -26,6 +26,7 @@ def test_chip_smoke_rehearsal_on_cpu(capsys):
     phases = [x.get("phase") for x in lines]
     assert phases.count("k1") == 5 and "pose" in phases
     assert phases.count("k2") == 4 and "capture" in phases
+    assert phases.index("pose") < phases.index("accuracy") < phases.index("capture")
     assert lines[-1] == {"kernels": kernels}
     assert [k["name"] for k in kernels] == ["raster_zbuffer", "ray_mesh_intersect"]
     for k in kernels:
@@ -54,6 +55,19 @@ def test_chip_smoke_rehearsal_on_cpu(capsys):
     # frame's, all of them where the rays share no origin
     assert all(k2[i]["survivors_per_block"]["mean"] < 0.2 * 1280 for i in (0, 2))
     assert k2[3]["survivors_per_block"] == {"mean": 1280.0, "max": 1280}
+    # accuracy: at this size the phase only runs and reports, beside the JAX
+    # package's values and the ceilings the card run holds
+    acc = next(x for x in lines if x.get("phase") == "accuracy")
+    assert acc["frames"] == 3
+    m = acc["metrics"]
+    for name, ceiling in chip_smoke.ACCURACY_CEILINGS.items():
+        assert m[name]["ceiling"] == ceiling and m[name]["card"] is not None
+    for name in ("adds_mean_m", "add_mean_m", "adds_auc_0.1d", "rot_err_deg_mean",
+                 "icp_fitness", "icp_adds_mm", "defect_pts", "defect_surface_median_dist_mm"):
+        assert isinstance(m[name]["jax_parity_r5"], float) or name == "defect_pts", name
+    assert m["defect_pts"]["jax_parity_r5"] == 587
+    assert {"register_adds_m_mean", "track_adds_m_mean", "register_rot_err_deg_mean",
+            "track_t_err_m_mean"} <= set(m)
     cap = next(x for x in lines if x.get("phase") == "capture")
     assert cap["a"]["refine_fitness"] >= 0.9 and cap["a"]["defect_points"] > 0
     assert [c["frame"] for c in cap["b"]["captures"]] == [0, 2]

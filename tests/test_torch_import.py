@@ -8,8 +8,8 @@ import numpy as np
 import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ["jax", "flax", "orbax", "sixdof_tpu", "cv2", "PIL", "imageio", "zstandard", "h5py",
-             "open3d", "dash", "plotly"]
+FORBIDDEN = ["jax", "flax", "orbax", "tensorstore", "sixdof_tpu", "cv2", "PIL", "imageio",
+             "zstandard", "h5py", "open3d", "dash", "plotly"]
 
 
 def test_import_graph_has_no_jax_or_host_libraries():
@@ -24,6 +24,7 @@ import run_torch
 bad = [n for n in sys.modules if n.split(".")[0] in {FORBIDDEN!r}]
 print("BAD", bad)
 print("N", sum(n.startswith("sixdof_tpu_torch") for n in sys.modules))
+print("CKPT", "sixdof_tpu_torch.models.checkpoint" in sys.modules)
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
@@ -31,7 +32,8 @@ print("N", sum(n.startswith("sixdof_tpu_torch") for n in sys.modules))
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
     n = int(out.stdout.split("N ")[1].split()[0])
-    assert n >= 30  # every submodule was imported
+    assert n >= 31  # every submodule was imported
+    assert "CKPT True" in out.stdout  # the checkpoint loader among them
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):

@@ -35,3 +35,15 @@ def test_add_adds(seed):
     b[:3, 3] = [0.5, 0, 0.5]
     assert tmet.add_err(a, b, pts) == jmet.add_err(a, b, pts)
     assert tmet.adds_err(a, b, pts) == pytest.approx(jmet.adds_err(a, b, pts), abs=1e-12)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_auc_and_rotation_angle(seed):
+    rng = np.random.RandomState(seed)
+    errs = np.abs(rng.randn(40)) * 0.004
+    for max_val in (0.0097, 0.1):
+        assert tmet.compute_auc(errs, max_val=max_val) == pytest.approx(
+            jmet.compute_auc(errs, max_val=max_val), abs=1e-12)
+    R1 = np.asarray(so3_exp_map(rng.randn(3) * 0.5), dtype=np.float64)
+    R2 = np.asarray(so3_exp_map(rng.randn(3) * 0.5), dtype=np.float64)
+    assert tmet.rotation_angle_deg(R1, R2) == jmet.rotation_angle_deg(R1, R2)

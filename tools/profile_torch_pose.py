@@ -3,9 +3,9 @@
 
     python3 tools/profile_torch_pose.py [--frames 5] [--trace-dir traces]
 
-Builds the pose server as chip_smoke.py does (demo scene synth_box, seeded
-full-width networks, 252 hypotheses), warms it up with one register and one
-track step, then runs register once and track_one on --frames frames under
+Builds the pose server as chip_smoke.py does (demo scene synth_box, the
+bundled networks from weights_torch/, 252 hypotheses), warms it up with one
+register and one track step, then runs register once and track_one on --frames frames under
 torch.profiler.  For each of the two it prints one JSON line: wall time,
 device-busy time (sum of the CUDA kernels' own durations), the busy share,
 the kernel launch count, and the kernels that take the most device time.
@@ -21,6 +21,7 @@ import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCENE = os.path.join(REPO, "demo_data", "synth_box")
+WEIGHTS = os.path.join(REPO, "weights_torch")
 
 
 def _device_us(evt):
@@ -71,8 +72,10 @@ def main():
     reader = DataReader(SCENE)
     mesh = load_mesh(os.path.join(SCENE, "mesh", "model_scaled_down.obj"))
     est = FoundationPose(model_pts=mesh.vertices, model_normals=mesh.vertex_normals, mesh=mesh,
-                         scorer=ScorePredictor(dev, seed=1),
-                         refiner=PoseRefinePredictor(dev, seed=0), device=dev, prune_to=64,
+                         scorer=ScorePredictor(dev, ckpt_dir=os.path.join(WEIGHTS, "scorer.npz")),
+                         refiner=PoseRefinePredictor(dev, ckpt_dir=os.path.join(WEIGHTS,
+                                                                                "refiner.npz")),
+                         device=dev, prune_to=64,
                          coarse_hw=(96, 96))
     K = reader.color_K
     color, depth = reader.get_color(0), reader.get_depth(0)
