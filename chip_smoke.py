@@ -50,7 +50,28 @@ non-zero without printing the final result:
            whose ICP results must register (fitness >= 0.9); then (a) and
            (b) again through K2's plain version, which must give the same
            transforms and defect points
-  kernels  each kernel the run launched, with its check and numbers
+  debug    the run loop at --debug 2 on frames 0-1: the staged register
+           (K1 launches counted), its pose beside the pose phase's fused
+           register (the pose phase's limits) and both register times, and
+           vis_refiner.png, track_vis/0001.png and overlay/overlay_0.png
+           decoded
+  viewer   the run loop in viewer mode on 127.0.0.1 (a free port), frames
+           0-3: GET / holds the Capture New Data button, the overlay is
+           served, one POST /capture after frame 0 triggers a capture on
+           frame 1 whose defect cloud reaches GET /data (a higher seq, the
+           loop state's point and face counts)
+  point_click  ray_tracing_points through K2 on the crust create_mesh builds
+           from mesh/model.ply (169,900 triangles), posed by the annotated
+           pose, at 64 seeded clicks inside the object's projection (K2
+           launches counted), and heatmap_to_rays at 0.75 (the same rays on
+           the card and the CPU) against the crust: t bit-equal to K2's
+           plain version, kernel and plain timings and the bound, as in k2
+  icp_global  determine_pose(icp=True) on the demo inputs on the card and on
+           the CPU (the same valid RANSAC trials, 0 on synth_box, and the
+           same fitness; seconds in FPFH, RANSAC and ICP), then
+           determine_pose(icp=False) from the annotated pose (fitness >= 0.9)
+  kernels  each kernel the run launched, with its check and numbers (K2's
+           launches: the run loop's in capture (b) and point_click's)
 
 The last line is {"ok": true, "device": {...}}.  Without CUDA the script
 exits 1 before any result.  `run(device="cpu", small=True)` rehearses every
@@ -89,6 +110,10 @@ K2_T_ATOL = 0.0
 # its plain version and the rest of each run is the same computation:
 # tolerance 0)
 CAPTURE_MIN_FITNESS = 0.9
+# --icp on the card against the CPU run: the RANSAC trials are host numpy,
+# the same on both, and the ICP that follows must end with the same inlier
+# count (on synth_box no trial passes the checkers and both runs end at 0)
+ICP_GLOBAL_FITNESS_ATOL = 1e-6
 CAPTURE_TF_ATOL = 0.0
 CAPTURE_PTS_ATOL = 0.0
 # accuracy on synth_box: tools/parity_check.py's ceilings (about 2x the JAX
@@ -382,7 +407,7 @@ def k2_cases(device, scene, small):
     tri, tri_mask = mesh_to_tri_verts(mesh.vertices, mesh.faces)
     tris = k2.pack_tris(torch.as_tensor(tri, device=device),
                         torch.as_tensor(tri_mask, device=device))
-    heatmap, _ = reader.get_heatmap()
+    heatmap = reader.get_heatmap(reader.get_color(0))[0]
     app_rays, _ = compute_rays(heatmap_to_points(heatmap, 0.75), reader.color_pinhole)
     rng = np.random.RandomState(0)
     centre = mesh.vertices.mean(axis=0)
@@ -516,7 +541,7 @@ def phase_accuracy(device, scene, small, pose):
 
     posed = reader.target_mesh.copy()
     posed.transform(np.linalg.inv(icp.transformation))
-    heatmap, _ = reader.get_heatmap()
+    heatmap = reader.get_heatmap(reader.get_color(0))[0]
     pcd, traced = ray_tracing(reader.base_dir, posed, heatmap, reader.color_pinhole,
                               heatmap_threshold=0.75, device=device)
     gt_posed = reader.target_mesh.copy()
@@ -564,7 +589,7 @@ def _capture_once(device, scene, small, plain):
     icp_refine_s = time.perf_counter() - t0
     posed = reader.target_mesh.copy()
     posed.transform(np.linalg.inv(icp.transformation))
-    heatmap, _ = reader.get_heatmap()
+    heatmap = reader.get_heatmap(reader.get_color(0))[0]
     t0 = time.perf_counter()
     pcd0, posed_c = ray_tracing(reader.base_dir, posed, heatmap, reader.color_pinhole,
                                 heatmap_threshold=0.75, device=device, plain_raytrace=plain)
@@ -640,14 +665,10 @@ def _loop_once(device, cfg, scene, small, refiner, scorer, plain):
     from sixdof_tpu_torch.kernels import raytrace as k2
 
     n_frames = 3 if small else 6
-    argv = ["--test_scene_dir", scene, "--no_server", "--max_frames", str(n_frames),
-            "--capture_every", "2", "--track_pipeline", "3", "--debug", "0",
-            "--debug_dir", os.path.join(REPO, "build", "chip_smoke", "plain" if plain else "k2")]
-    if small:
-        argv += ["--shorter_side", str(cfg.shorter_side), "--max_hypotheses", "8",
-                 "--prune_to", str(cfg.prune_to), "--est_refine_iter", "1",
-                 "--track_refine_iter", "1"]
-    args = app_run.build_parser().parse_args(argv)
+    args = _loop_args(cfg, scene, small,
+                      os.path.join(REPO, "build", "chip_smoke", "plain" if plain else "k2"),
+                      ["--no_server", "--max_frames", str(n_frames), "--capture_every", "2",
+                       "--track_pipeline", "3", "--debug", "0"])
     state = app_run.LoopState()
     with _scene_icp_parameters(small):
         _sync(device)
@@ -715,6 +736,325 @@ def phase_capture(device, cfg, scene, small, refiner, scorer):
                                      vs_plain["loop_pts_max_abs_diff_mm"]) > CAPTURE_PTS_ATOL:
         raise RuntimeError(f"kernel and plain-K2 captures disagree: {vs_plain}")
     return dict(loop_k2_launches=b["k2_launches"])
+
+
+# the rehearsal's viewer and --debug loops skip the depth polishes, whose
+# brute-force nearest neighbours take most of a CPU register
+_NO_POLISH = ["--depth_polish", "0", "--track_polish", "0"]
+
+
+def _loop_args(cfg, scene, small, debug_dir, extra):
+    """The port's run-loop arguments for @scene and @extra; for the CPU
+    rehearsal (@small) the crops' shorter side, 8 hypotheses and one
+    refine iteration a frame."""
+    from sixdof_tpu_torch.app import run as app_run
+
+    argv = ["--test_scene_dir", scene, "--debug_dir", debug_dir] + extra
+    if small:
+        argv += ["--shorter_side", str(cfg.shorter_side), "--max_hypotheses", "8",
+                 "--prune_to", str(cfg.prune_to), "--est_refine_iter", "1",
+                 "--track_refine_iter", "1"]
+    return app_run.build_parser().parse_args(argv)
+
+
+def phase_debug(device, cfg, scene, small, refiner, scorer, fused):
+    """The run loop at --debug 2 on frames 0-1: register through the staged
+    path (K1 launches counted over the run), the drawings and overlays
+    written and decodable, the staged register's pose beside the pose
+    phase's fused one (@fused) on frame 0."""
+    import numpy as np
+
+    from sixdof_tpu_torch.app import run as app_run
+    from sixdof_tpu_torch.io.png import read_png
+    from sixdof_tpu_torch.kernels.raster import rasterize_zbuffer
+
+    import shutil
+
+    out = os.path.join(REPO, "build", "chip_smoke", "debug2")
+    shutil.rmtree(out, ignore_errors=True)  # only this run's images count
+    args = _loop_args(cfg, scene, small, out, ["--no_server", "--max_frames", "2",
+                                               "--debug", "2"] + _NO_POLISH * small)
+    state = app_run.LoopState()
+    with _scene_icp_parameters(small):
+        _sync(device)
+        rasterize_zbuffer.launches = 0
+        app_run.main(args, device=device, refiner=refiner, scorer=scorer, state=state)
+        _sync(device)
+    launches = rasterize_zbuffer.launches
+    files = ["vis_refiner.png", os.path.join("track_vis", "0001.png")] + sorted(
+        os.path.join("overlay", f) for f in os.listdir(os.path.join(out, "overlay")))
+    shapes = {f: list(read_png(os.path.join(out, f)).shape) for f in files}
+    staged = np.loadtxt(os.path.join(out, "ob_in_cam", "0000.txt"))
+    rot = _rot_deg(staged[:3, :3], fused["poses"][0][:3, :3])
+    trans = float(np.linalg.norm(staged[:3, 3] - fused["poses"][0][:3, 3]))
+    res = dict(k1_launches=launches, staged_register_s=state.stages["register"]["total_s"],
+               fused_register_s=fused["register_s"], vs_fused_rot_deg=rot,
+               vs_fused_trans_m=trans, files=shapes, stages=state.stages)
+    if not small:  # both register paths in turns on one engine each: fused, staged x2, fused
+        res["register_s_in_turns"] = _register_in_turns(device, scene, refiner, scorer,
+                                                        os.path.join(out, "turns"))
+    emit({"phase": "debug", **res})
+    if device.type == "cuda" and launches == 0:
+        raise RuntimeError("the staged register did not launch raster kernel K1")
+    if len(shapes) < 3 or not any(f.startswith("overlay") for f in shapes):
+        raise RuntimeError(f"--debug 2 did not write its images: {shapes}")
+    # the rehearsal's loop runs other crops than the pose phase: reported only
+    if not small and (rot > POSE_ROT_DEG_MAX or trans > POSE_TRANS_M_MAX):
+        raise RuntimeError(f"staged and fused register disagree: {rot} deg, {trans} m")
+    return res
+
+
+def _register_in_turns(device, scene, refiner, scorer, debug_dir):
+    """Synchronised register_s of the fused cascade and of the staged path
+    (debug 2) on frame 0, in turns: [(path, seconds), ...]."""
+    from sixdof_tpu_torch.estimater import FoundationPose
+    from sixdof_tpu_torch.io.mesh_io import load_mesh
+    from sixdof_tpu_torch.io.readers import DataReader
+
+    reader = DataReader(scene)
+    mesh = load_mesh(os.path.join(scene, "mesh", "model_scaled_down.obj"))
+    engines = {debug: FoundationPose(model_pts=mesh.vertices, model_normals=mesh.vertex_normals,
+                                     mesh=mesh, scorer=scorer, refiner=refiner, device=device,
+                                     prune_to=64, debug=debug, debug_dir=debug_dir)
+               for debug in (0, 2)}
+    color, depth = reader.get_color(0), reader.get_depth(0)
+    mask = reader.get_mask(color, 0).astype(bool)
+    out = []
+    for debug in (0, 2, 2, 0):
+        _sync(device)
+        t0 = time.perf_counter()
+        engines[debug].register(K=reader.color_K, rgb=color, depth=depth, ob_mask=mask,
+                                iteration=5)
+        _sync(device)
+        out.append(("staged" if debug else "fused", time.perf_counter() - t0))
+    return out
+
+
+def _http(address, path, method="GET"):
+    """(status, body bytes) of one request to the viewer at @address."""
+    import urllib.request
+
+    req = urllib.request.Request(f"http://{address[0]}:{address[1]}{path}", method=method,
+                                 data=b"" if method == "POST" else None)
+    with urllib.request.urlopen(req, timeout=30) as r:
+        return r.status, r.read()
+
+
+def phase_viewer(device, cfg, scene, small, refiner, scorer):
+    """The run loop in viewer mode on 127.0.0.1 (a free port), frames 0-3
+    (0-1 in the rehearsal), no automatic captures: after frame 0's publish the page is served, the
+    payload holds frame 0's defect cloud and one POST /capture is made;
+    the capture it triggers must reach GET /data (a higher seq, the loop
+    state's point count)."""
+    from sixdof_tpu_torch.app import run as app_run
+    from sixdof_tpu_torch.kernels import raytrace as k2
+
+    seen = []
+
+    class State(app_run.LoopState):
+        def update(self, pcds, mesh):
+            super().update(pcds, mesh)
+            data = json.loads(_http(self.viewer_address, "/data")[1])
+            n = sum(len(p) for p in pcds)
+            seen.append(dict(seq=data["seq"], points=sum(len(p["points"]) for p in data["pcds"]),
+                             state_points=n, faces=len(data["faces"]),
+                             mesh_faces=len(mesh.faces)))
+            if len(seen) == 1:
+                page = _http(self.viewer_address, "/")[1].decode()
+                overlay = _http(self.viewer_address, "/assets/overlay.png")[1]
+                seen[0].update(page_has_button="Capture New Data" in page,
+                               overlay_png=overlay[:8] == b"\x89PNG\r\n\x1a\n",
+                               capture_status=_http(self.viewer_address, "/capture",
+                                                    "POST")[0])
+
+    out = os.path.join(REPO, "build", "chip_smoke", "viewer")
+    args = _loop_args(cfg, scene, small, out,
+                      ["--max_frames", "2" if small else "4", "--debug", "0"] + _NO_POLISH * small)
+    state = State()
+    with _scene_icp_parameters(small):
+        _sync(device)
+        k2.ray_mesh_intersect.launches = 0
+        app_run.main(args, device=device, refiner=refiner, scorer=scorer, state=state,
+                     viewer_address=("127.0.0.1", 0))
+        _sync(device)
+    res = dict(updates=seen, captures=[f for f, _ in state.captures],
+               k2_launches=k2.ray_mesh_intersect.launches)
+    emit({"phase": "viewer", **res})
+    first = seen[0] if seen else {}
+    if not (first.get("page_has_button") and first.get("overlay_png")
+            and first.get("capture_status") == 200):
+        raise RuntimeError(f"the viewer did not serve its page, overlay or capture: {res}")
+    if len(seen) < 2 or seen[-1]["seq"] <= seen[0]["seq"] or state.captures[-1][0] != 1:
+        raise RuntimeError(f"POST /capture did not trigger a capture on frame 1: {res}")
+    if any(u["points"] != u["state_points"] or u["faces"] != u["mesh_faces"] for u in seen):
+        raise RuntimeError(f"GET /data differs from the loop state: {res}")
+    return res
+
+
+def phase_point_click(device, scene, small, n_time):
+    """The point-click path: the crust create_mesh builds from the model's
+    point cloud (mesh/model.ply), posed by the annotated pose of frame 0,
+    and ray_tracing_points through K2 at seeded clicks inside the object's
+    projection, against K2's plain version (t bit-equal, a hit needed);
+    then heatmap_to_rays at 0.75 (on the card and on the CPU: the same
+    rays) against the same crust.  K2's launches are counted over
+    ray_tracing_points."""
+    import numpy as np
+    import torch
+
+    from sixdof_tpu_torch.app.defect_projection import (MAX_DEFECT_RAYS, compute_rays,
+                                                       create_mesh, ray_tracing_points)
+    from sixdof_tpu_torch.io.readers import DataReader
+    from sixdof_tpu_torch.kernels import raytrace as k2
+    from sixdof_tpu_torch.ops.raytrace import heatmap_to_rays, mesh_to_tri_verts
+
+    reader = DataReader(scene)
+    t0 = time.perf_counter()
+    crust = create_mesh(reader.target, resolution=16 if small else 64)
+    create_mesh_s = time.perf_counter() - t0
+    in_depth = reader.color_to_depth @ reader.scale_translation_to_millimeters(
+        reader.get_gt_pose(0))
+    crust.transform(in_depth)  # the object's crust in the scene (depth camera, mm)
+    in_color = crust.copy().transform(np.linalg.inv(reader.color_to_depth))
+    Kp = reader.color_pinhole.intrinsic_matrix
+    uv = in_color.vertices[:, :2] / in_color.vertices[:, 2:3] * Kp[[0, 1], [0, 1]] \
+        + Kp[:2, 2]
+    pix = np.unique(np.round(uv).astype(np.int64), axis=0)
+    rng = np.random.RandomState(0)
+    clicks = pix[rng.choice(len(pix), 8 if small else 64, replace=False)]
+    color = reader.get_color(0)
+
+    _sync(device)
+    k2.ray_mesh_intersect.launches = 0
+    t0 = time.perf_counter()
+    pcd, _ = ray_tracing_points(scene, crust, reader.color_pinhole, color, points=clicks,
+                                device=device)
+    _sync(device)
+    ray_tracing_points_ms = (time.perf_counter() - t0) * 1e3
+    launches = k2.ray_mesh_intersect.launches
+    pcd_plain, _ = ray_tracing_points(scene, crust, reader.color_pinhole, color, points=clicks,
+                                      device=device, plain_raytrace=True)
+
+    tri, tri_mask = mesh_to_tri_verts(in_color.vertices, in_color.faces)
+    tris = k2.pack_tris(torch.as_tensor(tri, device=device),
+                        torch.as_tensor(tri_mask, device=device))
+    click_rays, _ = compute_rays([(x, y, 1.0) for x, y in clicks], reader.color_pinhole)
+    heatmap = reader.get_heatmap(color)[0].astype(np.float32)
+    n_rays = 64 if small else MAX_DEFECT_RAYS  # the rehearsal's plain version is slow
+    dirs, inten, mask = heatmap_to_rays(torch.as_tensor(heatmap, device=device), Kp, 0.75,
+                                        n_rays)
+    dirs_cpu, inten_cpu, mask_cpu = heatmap_to_rays(torch.as_tensor(heatmap), Kp, 0.75, n_rays)
+    rays_err = float((dirs.cpu() - dirs_cpu).abs().max())
+    same_rays = bool(torch.equal(mask.cpu(), mask_cpu) and torch.equal(inten.cpu(), inten_cpu)
+                     and rays_err <= 1e-6)
+    results = []
+    for name, d, m in (("clicks", torch.as_tensor(click_rays, dtype=torch.float32,
+                                                   device=device),
+                        torch.ones(len(click_rays), dtype=torch.bool, device=device)),
+                       ("heatmap", dirs, mask)):
+        o = torch.zeros_like(d)
+        tk = k2.ray_mesh_intersect(o, d, m, tris)
+        tp = k2.ray_mesh_intersect_plain(o, d, m, tris)
+        _sync(device)
+        for _ in range(2):
+            k2.ray_mesh_intersect(o, d, m, tris)
+        ms = _timed(lambda: k2.ray_mesh_intersect(o, d, m, tris), device, n_time)
+        device_us = (_device_us(lambda: k2.ray_mesh_intersect(o, d, m, tris), n_time,
+                                "ray_mesh_kernel") if device.type == "cuda" else None)
+        plain_ms = _timed(lambda: k2.ray_mesh_intersect_plain(o, d, m, tris), device, 1)
+        N, T = len(d), len(tri_mask)
+        cone = _cone_pairs(o, d, m, tris, 64)
+        bytes_moved = N * (12 + 12 + 1) + T * 36 + N * 4
+        t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+        t_ops = cone * k2.FLOPS_PER_PAIR / FP32_FLOPS * 1e3
+        res = dict(shape=name, rays=N, valid_rays=int(m.sum()), triangles=T,
+                   rays_per_block=k2.THREADS >> k2.threads_per_ray_log2(N), cone_pairs=cone,
+                   hits=int(torch.isfinite(tk).sum()), bit_equal=bool(torch.equal(tk, tp)),
+                   ms=ms, device_us=device_us, plain_ms=plain_ms,
+                   bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes > t_ops else "operations",
+                   bytes_bound_ms=t_bytes)
+        if name == "clicks":
+            res.update(launches=launches, create_mesh_s=create_mesh_s,
+                       ray_tracing_points_ms=ray_tracing_points_ms, defect_points=len(pcd),
+                       plain_defect_points=len(pcd_plain),
+                       points_bit_equal=bool(np.array_equal(pcd.points, pcd_plain.points)))
+        else:
+            res.update(same_rays_as_cpu=same_rays, rays_max_abs_diff=rays_err)
+        emit({"phase": "point_click", **res})
+        if not res["bit_equal"] or res["hits"] == 0:
+            raise RuntimeError(f"K2 disagrees with its plain version on the crust: {res}")
+        results.append(res)
+    if device.type == "cuda" and launches == 0:
+        raise RuntimeError("ray_tracing_points did not launch K2")
+    if not (results[0]["points_bit_equal"] and len(pcd) > 0) or not same_rays:
+        raise RuntimeError(f"the point-click path disagrees with its plain run: {results}")
+    return results
+
+
+def phase_icp_global(device, scene, small):
+    """determine_pose(icp=True) on the demo inputs, on the card and on the
+    CPU: the same RANSAC trials (host numpy) and the same end (on synth_box
+    no trial passes the checkers, as in the JAX package); seconds in FPFH,
+    RANSAC and ICP.  Then determine_pose(icp=False) from the annotated pose
+    must register."""
+    import contextlib
+    from unittest import mock
+
+    import torch
+
+    from sixdof_tpu_torch.app import icp_pipeline as ip
+    from sixdof_tpu_torch.io.readers import DataReader
+    from sixdof_tpu_torch.ops import features
+
+    def run(dev, icp, initial=None):
+        target, source, background, init, params = ip.demo_data(scene)
+        params = _icp_parameters(params, small)
+        if small:
+            params["execute_global_registration"]["ransac_criteria"]["iterations"] = 2000
+        seconds = {"fpfh": 0.0, "ransac": 0.0, "icp": 0.0}
+        trials = []
+
+        def timed(key, fn, record=None):
+            def wrapper(*a, **kw):
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                _sync(dev)
+                seconds[key] += time.perf_counter() - t0
+                if record is not None:
+                    record.append(out.valid_trials)
+                return out
+            return wrapper
+
+        with contextlib.ExitStack() as stack:
+            for obj, name, key, rec in ((features, "compute_fpfh", "fpfh", None),
+                                        (features, "execute_global_registration", "ransac",
+                                         trials),
+                                        (ip, "refine_registration", "icp", None),
+                                        (ip, "improve_result", "icp", None)):
+                stack.enter_context(mock.patch.object(obj, name,
+                                                      timed(key, getattr(obj, name), rec)))
+            t0 = time.perf_counter()
+            _, res, _, _ = ip.determine_pose(source, target, background,
+                                             init if initial is None else initial, params,
+                                             icp=icp, device=dev)
+            _sync(dev)
+        return dict(fitness=res.fitness, rmse=res.inlier_rmse, valid_trials=trials,
+                    seconds=dict(seconds, total=time.perf_counter() - t0))
+
+    card = run(device, True)
+    cpu = run(torch.device("cpu"), True) if device.type == "cuda" else card
+    reader = DataReader(scene)
+    local = run(device, False, initial=reader.color_to_depth
+                @ reader.scale_translation_to_millimeters(reader.get_gt_pose(0)))
+    res = dict(icp=card, icp_cpu=cpu, from_annotated=local)
+    emit({"phase": "icp_global", **res})
+    if card["valid_trials"] != cpu["valid_trials"] or abs(card["fitness"] - cpu["fitness"]) \
+            > ICP_GLOBAL_FITNESS_ATOL:
+        raise RuntimeError(f"--icp on the card ends unlike the CPU run: {res}")
+    if not small and local["fitness"] < CAPTURE_MIN_FITNESS:
+        raise RuntimeError(f"determine_pose from the annotated pose did not register: {res}")
+    return res
 
 
 def _rot_deg(R1, R2):
@@ -824,6 +1164,12 @@ def run(device="cuda", small=False):
     k2 = phase_k2(dev, scene, small, n_time=2 if small else 50)
     phase_accuracy(dev, scene, small, kern)
     cap = phase_capture(dev, cfg, scene, small, refiner, scorer)
+    # the JAX app's other paths: --debug 2 (staged register, drawings), the
+    # viewer, the point-click defect path on a crust, the --icp registration
+    phase_debug(dev, cfg, scene, small, refiner, scorer, kern)
+    phase_viewer(dev, cfg, scene, small, refiner, scorer)
+    clicks = phase_point_click(dev, scene, small, n_time=2 if small else 20)
+    phase_icp_global(dev, scene, small)
 
     main_shape = k1[0]
     kernels = [{
@@ -840,7 +1186,7 @@ def run(device="cuda", small=False):
         "name": "ray_mesh_intersect", "route": "cuda",
         "source": "sixdof_tpu_torch/csrc/ray_mesh.cu",
         "replaces": "sixdof_tpu/ops/pallas/raytrace_kernel.py:85",
-        "launches": cap["loop_k2_launches"],
+        "launches": cap["loop_k2_launches"] + clicks[0]["launches"],
         "max_abs_err": max(r["max_abs_err"] for r in k2),
         "ms": k2[0]["ms"], "plain_ms": k2[0]["plain_ms"],
         "bound_ms": k2[0]["bound_ms"], "bound_by": k2[0]["bound_by"],

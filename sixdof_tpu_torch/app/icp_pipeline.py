@@ -3,29 +3,39 @@ parallel-restart ICP, and the fused capture program.
 
 Port of `sixdof_tpu/app/icp_pipeline.py` (`preprocess_target`,
 `preprocess_source`, `predict_z_axis_adjustment`, `improve_result`,
-`capture_event`, `capture_event_async`, `refine_pose_with_icp`).  The
-restarts and the z ladder run as one batched device call each
-(`ops/icp.py`); a capture event is one device program whose defect ray trace
-runs in kernel K2.  Units: millimetres, the depth camera's frame.  The
-`--icp` global-registration path (FPFH + RANSAC) is not ported.
+`capture_event`, `capture_event_async`, `refine_pose_with_icp`, and the
+`--icp` global registration: `refine_registration`, `run_icp`,
+`determine_pose`, the FPFH features of the preprocessing, and the
+standalone demo `demo_data` / `demo_icp`).  The restarts and the z ladder
+run as one batched device call each (`ops/icp.py`); a capture event is one
+device program whose defect ray trace runs in kernel K2; the FPFH features
+and the RANSAC trials are host numpy (`ops/features.py`).  Units:
+millimetres, the depth camera's frame.
+
+    python -m sixdof_tpu_torch.app.icp_pipeline [scene_dir]
+
+replays the standalone ICP demo on the card (default demo_data/synth_box).
 """
 from __future__ import annotations
 
 import copy
 import functools
+import json
 import logging
+import os
+import time
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..io.mesh_io import PointCloud
+from ..io.mesh_io import PointCloud, load_point_cloud
 from ..ops import icp as icp_ops
 from ..ops import pointcloud as pc
 from ..ops import raytrace as rt
 from ..ops.lie import euler_matrix
-from .defect_projection import create_intersection_pcd
+from .defect_projection import create_intersection_pcd, load_extrinsics
 
 
 @dataclass
@@ -35,6 +45,7 @@ class RegistrationResult:
     transformation: np.ndarray = field(default_factory=lambda: np.eye(4))
     fitness: float = 0.0
     inlier_rmse: float = 0.0
+    valid_trials: int = 0  # RANSAC (ops/features.py): the trials passing its checkers, scored
 
 
 def _bucket(n, minimum=1024, maximum=1 << 20):
@@ -61,21 +72,27 @@ def _pad_cloud(points, device, bucket=None):
 
 def preprocess_target(pcd: PointCloud, param):
     """Cap the target to max_pcd points and estimate its normals.
-    Returns (target_processed, None): the FPFH features feed the --icp path
-    only, which is not ported."""
+    Returns (target_processed, target_fpfh): the FPFH features when
+    @param["compute_fpfh"] (the --icp path), else None."""
     params = param["preprocess_target"]
     target_processed = pc.random_down_sample(pcd, params["max_pcd"])
     if len(target_processed) == len(pcd):
         logging.info(f":: Point cloud already has less than or exactly {params['max_pcd']} "
                      "points.")
     pc.estimate_normals(target_processed, radius=2, max_nn=5)
-    return target_processed, None
+    target_fpfh = None
+    if param.get("compute_fpfh", False):
+        target_fpfh = _compute_fpfh(target_processed, params.get("fpfh_radius", 20.0),
+                                    params.get("fpfh_max_nn", 100))
+    return target_processed, target_fpfh
 
 
 def preprocess_source(pcd: PointCloud, background: PointCloud, param, i=0,
                       near_point=None, near_radius=None):
     """Scene-cloud cleanup: downsample, plane removal, background removal,
-    cluster pick, outlier removal.  Returns (processed, processed, 0).
+    cluster pick, outlier removal.  Returns (processed, processed, fpfh):
+    fpfh is the processed cloud's FPFH features on the first frame when
+    @param["compute_fpfh"] (the --icp path), else 0.
 
     @i: 0 on the first frame (orients the plane by the cloud's mean normal
     and estimates normals), > 0 at capture time (keeps the camera's side of
@@ -132,10 +149,26 @@ def preprocess_source(pcd: PointCloud, background: PointCloud, param, i=0,
         source_processed = largest
     source_processed = pc.remove_statistical_outliers(source_processed, nb_neighbors=75,
                                                       std_ratio=0.01)
+    source_fpfh = 0
     if i == 0:
         pc.estimate_normals(background_d, radius=2, max_nn=5)
         pc.estimate_normals(source_processed, radius=2, max_nn=5)
-    return source_processed, source_processed, 0
+        if param.get("compute_fpfh", False):
+            source_fpfh = _compute_fpfh(source_processed, params.get("fpfh_radius", 20.0),
+                                        params.get("fpfh_max_nn", 100))
+    return source_processed, source_processed, source_fpfh
+
+
+def _compute_fpfh(pcd, radius, max_nn):
+    """The cloud's FPFH features, or None (with a warning) where they
+    cannot be computed, as the JAX package keeps its main path alive."""
+    from ..ops.features import compute_fpfh
+
+    try:
+        return compute_fpfh(pcd, radius=radius, max_nn=max_nn)
+    except Exception as e:  # the features are optional: keep the caller running
+        logging.warning(f":: FPFH computation failed: {e}")
+        return None
 
 
 # ------------------------------------------------------------------ device --
@@ -503,3 +536,139 @@ def refine_pose_with_icp(source, target, background, initial_fp_transformation, 
     target_transformed = target.copy()
     target_transformed.transform(np.linalg.inv(best_result_icp.transformation))
     return target_transformed, best_result_icp, z_adjustment, target_processed
+
+
+
+# ------------------------------------------------- global registration --
+
+
+def refine_registration(source: PointCloud, target: PointCloud, transformation, param,
+                        device=None):
+    """One point-to-plane ICP run of 30 iterations from @transformation
+    (source->target) at refine_registration's distance threshold, on
+    @device (None = the card)."""
+    dc = _DeviceClouds(source, target, resolve_device(device))
+    dev = dc.src.device
+    res = icp_ops.icp_batch(
+        dc.src, dc.src_mask, dc.tgt, dc.tgt_normals, dc.tgt_mask,
+        torch.as_tensor(np.asarray(transformation, dtype=np.float32), device=dev)[None],
+        torch.as_tensor([float(param["refine_registration"]["distance_threshold"])],
+                        dtype=torch.float32, device=dev),
+        max_iter=30,
+    )
+    return RegistrationResult(res.transformation[0].cpu().numpy().astype(np.float64),
+                              float(res.fitness[0]), float(res.inlier_rmse[0]))
+
+
+def run_icp(source_processed, target_processed, source_fpfh, target_fpfh, param, device=None):
+    """Global registration (RANSAC over FPFH matches) refined by ICP: the
+    --icp path.  Returns (result_icp, result_ransac)."""
+    from ..ops.features import execute_global_registration
+
+    result_ransac = execute_global_registration(
+        source_processed, target_processed, source_fpfh, target_fpfh, param)
+    result_icp = refine_registration(source_processed, target_processed,
+                                     result_ransac.transformation, param, device=device)
+    return result_icp, result_ransac
+
+
+def determine_pose(source, target, background, initial_fp_transformation, parameters,
+                   icp=False, device=None):
+    """The object's pose in the scene cloud, either from the FoundationPose
+    pose @initial_fp_transformation (z search, then the restarts) or, with
+    @icp, by global registration (up to 10 attempts until run_icp's fitness
+    and rmse thresholds hold), then the restarts.  On @device (None = the
+    card).  Returns (target_transformed, best_result_icp, z_adjustment,
+    target_processed)."""
+    dev = resolve_device(device)
+    param = copy.deepcopy(parameters)
+    if icp:
+        param["compute_fpfh"] = True  # the RANSAC path consumes features
+    source.paint_uniform_color([1, 0, 0])
+    target.paint_uniform_color([0, 0, 1])
+    start_time_total = time.perf_counter()
+    target_processed, target_fpfh = preprocess_target(target, param)
+    if icp:
+        near, nr = None, None  # global registration has no prior pose
+    else:
+        tb = target.points.max(axis=0) - target.points.min(axis=0)
+        near = np.asarray(initial_fp_transformation)[:3, 3]
+        nr = 0.75 * float(np.linalg.norm(tb))
+    source_processed, _, source_fpfh = preprocess_source(
+        source, background, param, near_point=near, near_radius=nr)
+
+    if icp:
+        result_icp, _ = run_icp(source_processed, target_processed, source_fpfh, target_fpfh,
+                                param, device=dev)
+        attempts = 1
+        while (result_icp.fitness < param["run_icp"]["fitness_threshold"]
+               or result_icp.inlier_rmse > param["run_icp"]["rmse_threshold"]) \
+                and attempts < 10:
+            result_icp, _ = run_icp(source_processed, target_processed, source_fpfh,
+                                    target_fpfh, param, device=dev)
+            attempts += 1
+        result_icp.transformation = np.linalg.inv(result_icp.transformation)
+        z_adjustment = 0
+    clouds = _DeviceClouds(source_processed, target_processed, dev)
+    if not icp:
+        z_adjustment, best_fitness, best_rmse = predict_z_axis_adjustment(
+            clouds, initial_fp_transformation, param)
+        initial_fp_transformation = np.array(initial_fp_transformation, dtype=np.float64)
+        initial_fp_transformation[2, 3] += z_adjustment
+        result_icp = RegistrationResult(initial_fp_transformation, best_fitness, best_rmse)
+
+    best_result_icp = improve_result(clouds, result_icp, param)
+    logging.info(
+        f"-- Final Results"
+        f"\n:: Refine registration results: Inlier_rmse: {best_result_icp.inlier_rmse:.4f}, "
+        f"Fitness: {best_result_icp.fitness:.4f}"
+        f"\n:: Pose Estimation Execution Time: {time.perf_counter() - start_time_total:.2f} "
+        "seconds"
+    )
+    target_transformed = target.copy()
+    target_transformed.transform(np.linalg.inv(best_result_icp.transformation))
+    return target_transformed, best_result_icp, z_adjustment, target_processed
+
+
+# ------------------------------------------------------------------- demos --
+
+
+def demo_data(base_dir="demo_data/synth_box", frame="0000"):
+    """The standalone ICP demo's inputs: (target model cloud, scene cloud,
+    background, initial pose (depth camera, mm) from debug/ob_in_cam/ or
+    else the annotated pose, ICP parameters)."""
+    source = load_point_cloud(f"{base_dir}/pcd/cloud_{frame}.ply")
+    background = load_point_cloud(f"{base_dir}/background/box.ply")
+    target = load_point_cloud(f"{base_dir}/mesh/model.ply")
+
+    pose_file = f"debug/ob_in_cam/{frame}.txt"
+    if not os.path.exists(pose_file):
+        pose_file = f"{base_dir}/annotated_poses/{frame}.txt"
+    scaled = np.loadtxt(pose_file).reshape(4, 4)
+    scaled[:3, -1] *= 1000.0
+    color_to_depth, _ = load_extrinsics(base_dir)
+    initial = color_to_depth @ scaled
+    with open(f"{base_dir}/configs/icp_parameters.json") as f:
+        icp_param = json.load(f)
+    return target, source, background, initial, icp_param
+
+
+def demo_icp(base_dir="demo_data/synth_box", tries=1, icp=False, device=None):
+    """Replay determine_pose on the demo inputs @tries times; returns the
+    mean seconds a try."""
+    target, source, background, initial, icp_param = demo_data(base_dir)
+    t0 = time.perf_counter()
+    for i in range(tries):
+        determine_pose(source, target, background, initial.copy(), icp_param, icp=icp,
+                       device=device)
+        logging.info(f"Try number {i}")
+    total = time.perf_counter() - t0
+    logging.info(f"Average time for {tries} iterations {total / tries}\n Total time {total}")
+    return total / tries
+
+
+if __name__ == "__main__":
+    import sys
+
+    logging.basicConfig(level=logging.INFO, format="[%(funcName)s()] %(message)s")
+    demo_icp(sys.argv[1] if len(sys.argv) > 1 else "demo_data/synth_box")

@@ -1,32 +1,40 @@
 """Application loop: pose registration + tracking + ICP + defect projection.
 
-Port of `sixdof_tpu/app/run.py` with the viewer off (its `--no_server`
-path), on one device:
+Port of `sixdof_tpu/app/run.py` on one device:
 
 - frame 0: register -> mm scale + extrinsic compose -> refine_pose_with_icp
   -> ray_tracing of the defect heatmap onto the ICP-posed mesh;
-- later frames: track_one; every `--capture_every` frames a capture event
-  (restart ICP + defect ray trace in one device program).  With
-  `--debug 0` and `--track_pipeline > 0` the pose chain stays on the
-  device: tracked poses are read back `track_pipeline` frames late, capture
-  events are dispatched from the device pose (capture_event_async) and
-  consumed four frames later; otherwise every frame syncs and captures run
-  synchronously (capture_event).  Poses go to `{debug_dir}/ob_in_cam/`.
+- later frames: track_one; a capture event (restart ICP + defect ray trace
+  in one device program) every `--capture_every` frames and whenever the
+  viewer's Capture New Data button was pressed.  With `--debug 0` and
+  `--track_pipeline > 0` the pose chain stays on the device: tracked poses
+  are read back `track_pipeline` frames late, capture events are dispatched
+  from the device pose (capture_event_async) and consumed four frames
+  later; otherwise every frame syncs and captures run synchronously
+  (capture_event).  Poses go to `{debug_dir}/ob_in_cam/`.
+- the viewer (app/web_vis.py) serves the accumulated defect clouds (depth
+  camera, mm), the posed mesh and the heatmap overlay of the last capture
+  while the loop runs, on 0.0.0.0:8050 unless `--no_server`;
+- `--debug >= 1` draws the posed box and axes on every frame (every frame
+  syncs); `--debug >= 2` writes them to `{debug_dir}/track_vis/`, the
+  overlays to `{debug_dir}/overlay/`, registers through the staged path
+  and writes its refiner crops to `{debug_dir}/vis_refiner.png`.  The JAX
+  app's OpenCV window (a display) has no counterpart.
 
-What the viewer would show (the accumulated defect clouds in the depth
-camera's frame and the posed mesh) is kept on a `LoopState` the caller may
-pass.  Not ported: the Dash viewer, the overlay images and debug drawing,
-the `--icp` global-registration path, the live Kinect reader and the TPU
-compile-hiding threads.  The networks load `--refiner_ckpt` and
-`--scorer_ckpt`, by default the numpy export of the bundled weights
-(`weights_torch/`, written by `tools/export_torch_weights.py`) when it
-exists, else they start from a seed, as the JAX app does with `weights/`.
+What the viewer shows is also kept on a `LoopState` the caller may pass.
+Not ported: the live Kinect reader and the TPU compile-hiding threads.  The
+networks load `--refiner_ckpt` and `--scorer_ckpt`, by default the numpy
+export of the bundled weights (`weights_torch/`, written by
+`tools/export_torch_weights.py`) when it exists, else they start from a
+seed, as the JAX app does with `weights/`.
 """
 from __future__ import annotations
 
 import argparse
 import logging
 import os
+import queue
+import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -37,10 +45,14 @@ from ..config import PipelineConfig
 from ..device import resolve_device
 from ..estimater import FoundationPose
 from ..io.mesh_io import TriMesh, load_mesh
+from ..io.png import write_png_rgb8
 from ..io.readers import DataReader
 from ..models.predict import PoseRefinePredictor, ScorePredictor
 from ..utils.profiling import StageTimer, set_seed
-from .defect_projection import compute_rays, heatmap_to_points, ray_tracing
+from ..utils.vis import draw_posed_3d_box, draw_xyz_axis
+from . import web_vis
+from .defect_projection import (compute_rays, create_heatmap_overlay, heatmap_to_points,
+                                ray_tracing, save_overlay)
 from .icp_pipeline import (CaptureContext, capture_event, capture_event_async,
                            preprocess_source, refine_pose_with_icp)
 
@@ -75,15 +87,17 @@ def oriented_bounds(mesh):
 
 @dataclass
 class LoopState:
-    """What the viewer would show, updated where the JAX app calls
+    """What the viewer shows, updated where the JAX app calls
     `update_dash_data`: the accumulated defect clouds (depth camera, mm),
     the mesh posed by the latest ICP result, and the frame and registration
-    result of frame 0's ICP refinement and of each capture; and the loop's
-    per-stage host wall times."""
+    result of frame 0's ICP refinement and of each capture; the viewer's
+    bound (host, port) while it serves; and the loop's per-stage host wall
+    times."""
 
     intersection_pcds: list = field(default_factory=list)
     target_mesh: TriMesh = None
     captures: list = field(default_factory=list)  # (frame, RegistrationResult)
+    viewer_address: tuple = None
     stages: dict = field(default_factory=dict)  # StageTimer.summary() at the end
 
     def update(self, intersection_pcds, target_mesh):
@@ -91,28 +105,50 @@ class LoopState:
         self.target_mesh = target_mesh
 
 
-def main(args, device=None, refiner=None, scorer=None, plain_raytrace=False, state=None):
+def main(args, device=None, refiner=None, scorer=None, plain_raytrace=False, state=None,
+         viewer_address=("0.0.0.0", 8050)):
     """Run the loop over the scene's frames; returns the per-frame wall times
     (seconds).  @device: None = the card (or `args.device`); @refiner/@scorer:
     predictors to use instead of those the arguments name; @plain_raytrace:
-    K2's plain version (a comparison run); @state: a LoopState to fill."""
+    K2's plain version (a comparison run); @state: a LoopState to fill;
+    @viewer_address: where the viewer listens unless `args.no_server` (port
+    0 picks a free port, recorded in `state.viewer_address`).  The viewer
+    stops when the loop ends."""
     dev = resolve_device(device or getattr(args, "device", None))
     state = state if state is not None else LoopState()
-    if not getattr(args, "no_server", True):
-        logging.warning("the viewer is not ported: running headless")
+    capture_queue = queue.Queue()  # POST /capture -> the loop
+    server = None
+    if not args.no_server:
+        # no data queue: the page polls GET /data, and nothing waits on wake signals
+        server = web_vis.make_server(None, capture_queue, *viewer_address)
+        state.viewer_address = server.server_address[:2]
+        threading.Thread(target=server.serve_forever, name="defect-viewer", daemon=True).start()
+    try:
+        return _loop(args, dev, refiner, scorer, plain_raytrace, state, capture_queue)
+    finally:
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+            state.viewer_address = None
+
+
+def _loop(args, dev, refiner, scorer, plain_raytrace, state, capture_queue):
     mesh = load_mesh(getattr(args, "mesh_file", None)
                      or f"{args.test_scene_dir}/mesh/model_scaled_down.obj")
     debug = args.debug
     debug_dir = args.debug_dir
+    os.makedirs(f"{debug_dir}/track_vis", exist_ok=True)
     os.makedirs(f"{debug_dir}/ob_in_cam", exist_ok=True)
+    to_origin, extents = oriented_bounds(mesh)
+    bbox = np.stack([-extents / 2, extents / 2], axis=0).reshape(2, 3)
 
     if refiner is None:
         refiner = PoseRefinePredictor(dev, ckpt_dir=_ckpt(args.refiner_ckpt, "refiner"))
     if scorer is None:
         scorer = ScorePredictor(dev, ckpt_dir=_ckpt(args.scorer_ckpt, "scorer"))
     est = FoundationPose(model_pts=mesh.vertices, model_normals=mesh.vertex_normals, mesh=mesh,
-                         scorer=scorer, refiner=refiner, device=dev,
-                         prune_to=args.prune_to or None,
+                         scorer=scorer, refiner=refiner, device=dev, debug=debug,
+                         debug_dir=debug_dir, prune_to=args.prune_to or None,
                          prune_schedule=_parse_prune_schedule(args.prune_schedule),
                          track_crop=bool(args.track_crop), polish_top=args.polish_top,
                          polish_iters=args.polish_iters, depth_polish=bool(args.depth_polish),
@@ -135,6 +171,7 @@ def main(args, device=None, refiner=None, scorer=None, plain_raytrace=False, sta
     current_transformation = np.eye(4)
     target_mesh_copy = None
     capture_ctx = None
+    overlay_path = os.path.join(web_vis.ASSETS_DIR, "overlay.png")
 
     def drain_pending(keep_frame=None, leave=0):
         """Write queued async poses to ob_in_cam in frame order, down to
@@ -151,6 +188,19 @@ def main(args, device=None, refiner=None, scorer=None, plain_raytrace=False, sta
     def to_initial_tf(pose):
         """FoundationPose metres/colour camera -> ICP millimetres/depth camera."""
         return np.dot(reader.color_to_depth, reader.scale_translation_to_millimeters(pose))
+
+    def publish():
+        """What the viewer shows: its payload, then the caller's state."""
+        web_vis.update_dash_data(intersection_pcds, target_mesh_copy)
+        state.update(intersection_pcds, target_mesh_copy)
+
+    def heatmap_overlay(i):
+        """The heatmap and its overlay on frame @i, saved for the viewer."""
+        with timer.stage("overlay"):
+            heatmap, color_original, heatmap_vis, _ = reader.get_heatmap(reader.get_color(i))
+            overlay = create_heatmap_overlay(color_original, heatmap_vis)
+            save_overlay(overlay, overlay_path)
+        return heatmap, overlay
 
     def consume_capture(frame, initial_transformation, current_result, new_pcd):
         """Fold one capture's result into the loop state (the JAX app's
@@ -169,7 +219,7 @@ def main(args, device=None, refiner=None, scorer=None, plain_raytrace=False, sta
         intersection_pcds.append(new_pcd)
         previous_transformation = current_transformation
         state.captures.append((frame, current_result))
-        state.update(intersection_pcds, target_mesh_copy)
+        publish()
 
     def drain_captures(now=None):
         """Consume finished async capture events in frame order; entries
@@ -181,7 +231,7 @@ def main(args, device=None, refiner=None, scorer=None, plain_raytrace=False, sta
             current_result, new_pcd = pcap.result()
             consume_capture(j, to_initial_tf(pp.numpy()), current_result, new_pcd)
 
-    heatmap, _ = reader.get_heatmap()
+    heatmap, overlay = heatmap_overlay(0)
     max_frames = min(args.max_frames or len(reader), len(reader))
     pipeline_depth = args.track_pipeline
     async_mode = debug < 1 and pipeline_depth > 0
@@ -217,9 +267,11 @@ def main(args, device=None, refiner=None, scorer=None, plain_raytrace=False, sta
                                             plain_raytrace=plain_raytrace)
             defect_pcd.transform(reader.color_to_depth)
             intersection_pcds.append(defect_pcd)
+            if debug >= 2:
+                save_overlay(overlay, f"{debug_dir}/overlay/overlay_{i}.png")
             previous_transformation = initial_icp_result.transformation
             state.captures.append((0, initial_icp_result))
-            state.update(intersection_pcds, target_mesh_copy)
+            publish()
         else:
             with timer.stage("track"):
                 out = est.track_one(rgb=color, depth=depth, K=reader.color_K,
@@ -235,11 +287,20 @@ def main(args, device=None, refiner=None, scorer=None, plain_raytrace=False, sta
                 pose = out
                 initial_transformation = to_initial_tf(pose)
 
+            detect_defect = False
+            if not capture_queue.empty():
+                capture_queue.get()
+                detect_defect = True
+                logging.info("New Defect Detection initiated!")
             if args.capture_every and i % args.capture_every == 0:
-                heatmap, _ = reader.get_heatmap()
+                detect_defect = True
+            if detect_defect:
+                heatmap, overlay = heatmap_overlay(i)
                 with timer.stage("capture"):
                     source_processed, _, _ = preprocess_source(
                         reader.get_source(i), reader.background, reader.parameters, i=i)
+                    if debug >= 2:
+                        save_overlay(overlay, f"{debug_dir}/overlay/overlay_{i}.png")
                     pix = heatmap_to_points(heatmap, HEATMAP_THRESHOLD)
                     if pix:
                         rays, intensities = compute_rays(pix, reader.color_pinhole)
@@ -267,6 +328,16 @@ def main(args, device=None, refiner=None, scorer=None, plain_raytrace=False, sta
         if pose is not None:
             np.savetxt(f"{debug_dir}/ob_in_cam/{i:04d}.txt", pose.reshape(4, 4))
         frame_times.append(time.perf_counter() - t0)
+
+        if debug >= 1:
+            with timer.stage("draw"):
+                center_pose = pose @ np.linalg.inv(to_origin)
+                vis = draw_posed_3d_box(reader.color_K, img=color.copy(), ob_in_cam=center_pose,
+                                        bbox=bbox)
+                vis = draw_xyz_axis(vis, ob_in_cam=center_pose, scale=0.1, K=reader.color_K,
+                                    thickness=3, transparency=0, is_input_rgb=True)
+                if debug >= 2:
+                    write_png_rgb8(f"{debug_dir}/track_vis/{i:04d}.png", vis)
         i += 1
 
     drain_captures()  # consume any in-flight capture event
@@ -319,8 +390,7 @@ def build_parser():
     parser.add_argument("--capture_every", type=int, default=pc.capture_every,
                         help="trigger a defect capture every N frames")
     parser.add_argument("--no_server", action="store_true",
-                        help="no viewer (the port has none; accepted for the JAX app's "
-                             "command line)")
+                        help="no viewer (default: it serves on http://0.0.0.0:8050)")
     parser.add_argument("--prune_to", type=int, default=pc.prune_to,
                         help="keep this many hypotheses after 2 coarse iterations "
                              "(0 = the full grid for all iterations)")

@@ -500,7 +500,10 @@ ray_mesh_kernel(const float* __restrict__ origins, const float* __restrict__ dir
 }  // namespace
 
 // Launches on @stream and returns cudaGetLastError() (0 = launched).
-// @log2_p: log2 of the threads a ray (0..5).
+// @log2_p: log2 of the threads a ray (0..5).  Ray offsets (3 r + i) and the
+// triangle walk (t0 + 256) are int: N <= (2^31 - 1) / 3 and T <= 2^31 - 257,
+// which the wrapper (kernels/raytrace.py) enforces.  The survivor list never
+// overflows: it is tested whenever it holds more than kList - kThreads.
 extern "C" int ray_mesh_intersect(const void* origins, const void* dirs, const void* valid,
                                   const void* tris, void* t_out, int N, int T, int log2_p,
                                   void* stream) {

@@ -8,12 +8,18 @@ centred-mesh compose).  Depth filtering, hypothesis rendering, refinement,
 scoring and the depth polishes run on the estimator's device; the host
 guesses the initial translation from the mask and orchestrates.
 
-The JAX engine's executable cache and background precompile exist to hide
-TPU compile time; PyTorch runs eagerly, so they have no counterpart here.
+Registration runs the fused cascade (models/predict.py::register_pipeline)
+or, at `debug >= 2`, the JAX engine's staged path: refine and score as
+separate predictor calls, with the refiner's crops written to
+`{debug_dir}/vis_refiner.png`.  The JAX engine also takes the staged path
+on a device mesh or while its fused program compiles; the executable cache
+and background precompile exist to hide TPU compile time, and PyTorch
+runs eagerly, so they have no counterpart here.
 """
 from __future__ import annotations
 
 import logging
+import os
 from collections import deque
 
 import numpy as np
@@ -21,10 +27,11 @@ import torch
 
 from .device import resolve_device
 from .io.mesh_io import PointCloud, TriMesh
+from .io.png import write_png_rgb8
 from .models.predict import (PoseRefinePredictor, ScorePredictor, pack_rgbd, register_pipeline,
                              to_rgb01, track_pose)
 from .ops.depth_filter import bilateral_filter_depth, erode_depth
-from .ops.geometry import compute_mesh_diameter
+from .ops.geometry import compute_mesh_diameter, depth2xyzmap
 from .ops.hypotheses import make_rotation_grid
 from .ops.icp import icp_polish_two_pass
 from .ops.pointcloud import voxel_down_sample
@@ -74,9 +81,9 @@ class PendingPose:
 class FoundationPose:
     def __init__(self, model_pts, model_normals, symmetry_tfs=None, mesh: TriMesh = None,
                  scorer: ScorePredictor = None, refiner: PoseRefinePredictor = None,
-                 device=None, prune_to=None, coarse_hw=(96, 96), prune_schedule=None,
-                 track_crop=True, polish_top=0, polish_iters=2, depth_polish=True,
-                 track_polish=True, plain_raster=False):
+                 device=None, debug=0, debug_dir="debug/fp", prune_to=None, coarse_hw=(96, 96),
+                 prune_schedule=None, track_crop=True, polish_top=0, polish_iters=2,
+                 depth_polish=True, track_polish=True, plain_raster=False):
         """@prune_to: keep this many hypotheses after 2 coarse refine
         iterations over the full grid at @coarse_hw (None: no pruning).
         @prune_schedule: (iters, keep) coarse stages in place of prune_to's
@@ -87,9 +94,14 @@ class FoundationPose:
         masked observed cloud.  @track_polish: the same polish, guarded,
         after every track step.
         @device: None = the CUDA card (raises without one), or e.g. "cpu".
+        @debug: >= 2 registers through the staged path, writes the
+        refiner's crops to {@debug_dir}/vis_refiner.png and tracks full
+        frames (no upload crop).
         @plain_raster: render every hypothesis through the raster kernel's
         plain PyTorch version instead of the kernel (a comparison run)."""
         self.device = resolve_device(device)
+        self.debug = debug
+        self.debug_dir = debug_dir
         self.plain_raster = bool(plain_raster)
         self.prune_to = prune_to
         self.prune_schedule = tuple(tuple(s) for s in prune_schedule) if prune_schedule else None
@@ -231,6 +243,8 @@ class FoundationPose:
             pose[:3, 3] = self.guess_translation(depth=depth_np, mask=ob_mask, K=K)
             return pose
         poses = self.generate_random_pose_hypo(K=K, rgb=rgb, depth=depth_np, mask=ob_mask)
+        if self.debug >= 2:
+            return self._register_staged(K, rgb, depth_t, depth_np, ob_mask, poses, iteration)
         ref, sc = self.refiner, self.scorer
         score_hw = tuple(sc.cfg["input_resize"])
         poses_sorted, scores_sorted = register_pipeline(
@@ -260,6 +274,63 @@ class FoundationPose:
         self._last_center_px = None
         self.poses = poses_np
         self.scores = scores_np
+        return poses_np[0] @ self.get_tf_to_centered_mesh()
+
+    def _register_staged(self, K, rgb, depth_t, depth_np, ob_mask, poses, iteration):
+        """The JAX engine's staged register: the cascade's stages as separate
+        refiner and scorer calls (prune schedule, final refine and score,
+        cascade polish), ranked on the host, then the depth polish."""
+        logging.info("register: staged path")
+        common = dict(mesh=self.mesh, mesh_tensors=self.mesh_tensors, rgb=rgb, depth=depth_t,
+                      K=K, glctx=None, mesh_diameter=self.diameter,
+                      backface_cull=self.backface_cull, plain_raster=self.plain_raster)
+        xyz_map = depth2xyzmap(depth_t, torch.as_tensor(K, dtype=torch.float32,
+                                                        device=self.device))
+        n_hypo = len(poses)
+        schedule = self.prune_schedule
+        if schedule is None and self.prune_to and self.prune_to < len(poses) and iteration > 2:
+            schedule = ((2, self.prune_to),)  # 2 iterations on the full grid, keep the best
+        for stage_iters, keep_k in schedule or ():
+            if keep_k >= n_hypo or iteration <= stage_iters:
+                continue
+            coarse, _ = self.refiner.predict(ob_in_cams=poses, xyz_map=xyz_map,
+                                             iteration=stage_iters, get_vis=False,
+                                             out_hw=self.coarse_hw, **common)
+            coarse_scores, _ = self.scorer.predict(ob_in_cams=coarse, out_hw=self.coarse_hw,
+                                                   **common)
+            keep = np.argsort(-coarse_scores.cpu().numpy()[:n_hypo])[:keep_k]
+            poses = coarse.cpu().numpy()[keep]
+            n_hypo = len(poses)
+            iteration = iteration - stage_iters
+        poses, vis = self.refiner.predict(ob_in_cams=poses, xyz_map=xyz_map, iteration=iteration,
+                                          get_vis=True, **common)
+        if vis is not None:
+            os.makedirs(self.debug_dir, exist_ok=True)
+            write_png_rgb8(f"{self.debug_dir}/vis_refiner.png", vis)
+        scores, _ = self.scorer.predict(ob_in_cams=poses, **common)
+        scores_np = scores.cpu().numpy()[:n_hypo]
+        poses_np = poses.cpu().numpy()[:n_hypo]
+        if self.polish_top and self.polish_iters and self.polish_top <= n_hypo:
+            # extra refine iterations on the best few, ranked alongside the
+            # originals (the fused cascade's polish)
+            top = np.argsort(-scores_np)[: self.polish_top]
+            cand, _ = self.refiner.predict(ob_in_cams=poses_np[top], xyz_map=xyz_map,
+                                           iteration=self.polish_iters, get_vis=False, **common)
+            cand_scores, _ = self.scorer.predict(ob_in_cams=cand, **common)
+            poses_np = np.concatenate([cand.cpu().numpy(), poses_np])
+            scores_np = np.concatenate([cand_scores.cpu().numpy(), scores_np])
+        ids = np.argsort(-scores_np)
+        poses_np = poses_np[ids]
+        logging.info(f"sorted scores (top5): {scores_np[ids][:5]}")
+        if self.depth_polish:
+            poses_np = poses_np.copy()
+            poses_np[0] = self._depth_polish(poses_np[0], depth_np, ob_mask, K)
+        self.pose_last = poses_np[0]
+        self._crop_pose_host = np.asarray(poses_np[0], dtype=np.float64)
+        self._pose_hist.clear()
+        self._last_center_px = None
+        self.poses = poses_np
+        self.scores = scores_np[ids]
         return poses_np[0] @ self.get_tf_to_centered_mesh()
 
     def _crop_window(self, K, hw):
@@ -322,7 +393,8 @@ class FoundationPose:
     def track_one(self, rgb, depth, K, iteration, sync=True):
         """Single-hypothesis refinement from the previous frame's pose.
         @sync=False returns a PendingPose: the pose chain stays on the device
-        and its host copy is started without blocking."""
+        and its host copy is started without blocking.  At debug >= 2 the
+        whole frame goes up (no upload crop)."""
         if self.pose_last is None:
             raise RuntimeError("track_one needs a pose: call register first")
         ref = self.refiner
@@ -335,7 +407,8 @@ class FoundationPose:
         if depth_np.dtype != np.uint16:
             depth_np = np.clip(depth_np * 1000.0, 0, 65535).astype(np.uint16)
         K_use = np.asarray(K, dtype=np.float64)
-        win = self._crop_window(K_use, rgb_np.shape[:2]) if self.track_crop else None
+        win = self._crop_window(K_use, rgb_np.shape[:2]) \
+            if self.track_crop and self.debug < 2 else None
         if win is not None:
             oy, ox, size = win
             rgb_np = rgb_np[oy : oy + size, ox : ox + size]

@@ -1,7 +1,7 @@
 """Triangle-mesh and point-cloud containers + OBJ/PLY loading.
 
 Port of `sixdof_tpu/io/mesh_io.py` (the loaders and containers the pose and
-capture paths use), numpy only.  Vertex-coloured meshes only: an OBJ whose material names
+capture paths use, and the point-cloud PLY writer), numpy only.  Vertex-coloured meshes only: an OBJ whose material names
 a texture raises NotImplementedError until textured meshes are ported.
 """
 from __future__ import annotations
@@ -326,3 +326,29 @@ def load_point_cloud(path) -> PointCloud:
             return PointCloud(out.vertices, colors=None)
         return out
     raise ValueError(f"unsupported point-cloud format: {ext}")
+
+
+def save_point_cloud(path, pcd: PointCloud):
+    """Write a PointCloud as binary little-endian PLY: x y z float, then
+    normals and uchar colours where present (colours in [0,1] are scaled to
+    0-255), as the JAX package's save_ply writes it."""
+    props = [("x", "f4"), ("y", "f4"), ("z", "f4")]
+    if pcd.normals is not None:
+        props += [("nx", "f4"), ("ny", "f4"), ("nz", "f4")]
+    if pcd.colors is not None:
+        props += [("red", "u1"), ("green", "u1"), ("blue", "u1")]
+    names = {"f4": "float", "u1": "uchar"}
+    header = ["ply", "format binary_little_endian 1.0", f"element vertex {len(pcd.points)}"]
+    header += [f"property {names[dt]} {p}" for p, dt in props] + ["end_header"]
+    rec = np.zeros(len(pcd.points), dtype=[(p, "<" + dt) for p, dt in props])
+    rec["x"], rec["y"], rec["z"] = pcd.points.T
+    if pcd.normals is not None:
+        rec["nx"], rec["ny"], rec["nz"] = pcd.normals.T
+    if pcd.colors is not None:
+        c = np.asarray(pcd.colors, dtype=np.float64)
+        if c.size and c.max() <= 1.0 + 1e-9:
+            c = c * 255.0
+        rec["red"], rec["green"], rec["blue"] = np.clip(c, 0, 255).astype(np.uint8).T
+    with open(path, "wb") as f:
+        f.write(("\n".join(header) + "\n").encode("ascii"))
+        f.write(rec.tobytes())

@@ -1,5 +1,6 @@
 """PNG decoding with numpy and zlib, standing in for ``cv2.imread(path, -1)``,
-and a minimal writer of 8-bit greyscale images (``cv2.imwrite`` of a mask).
+and a minimal writer of 8-bit greyscale, RGB and RGBA images (what
+``cv2.imwrite`` writes for a mask, an overlay or a debug drawing).
 
 Supports 8-bit gray, RGB and RGBA and 16-bit gray, non-interlaced, with
 all five row filters (the demo scenes use 8-bit RGB, 8-bit gray and 16-bit
@@ -89,15 +90,31 @@ def _chunk(ctype, body):
             + struct.pack(">I", zlib.crc32(ctype + body) & 0xFFFFFFFF))
 
 
+def _write_png8(path, img, color_type):
+    """Write an 8-bit image (no row filter; colour type 0, 2 or 6), deflated
+    at zlib level 1, OpenCV's default for PNG."""
+    h, w = img.shape[:2]
+    stride = w * _CHANNELS[color_type]
+    rows = np.zeros((h, stride + 1), dtype=np.uint8)  # filter type 0 before each row
+    rows[:, 1:] = img.reshape(h, stride)
+    data = (_SIG + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0))
+            + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 1)) + _chunk(b"IEND", b""))
+    with open(path, "wb") as f:
+        f.write(data)
+
+
 def write_png_gray8(path, img):
-    """Write a (H,W) uint8 image as an 8-bit greyscale PNG (no row filter)."""
+    """Write a (H,W) uint8 image as an 8-bit greyscale PNG."""
     img = np.ascontiguousarray(img)
     if img.ndim != 2 or img.dtype != np.uint8:
         raise ValueError(f"expected a (H,W) uint8 image, got {img.shape} {img.dtype}")
-    h, w = img.shape
-    rows = np.zeros((h, w + 1), dtype=np.uint8)  # filter type 0 before each row
-    rows[:, 1:] = img
-    data = (_SIG + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
-            + _chunk(b"IDAT", zlib.compress(rows.tobytes())) + _chunk(b"IEND", b""))
-    with open(path, "wb") as f:
-        f.write(data)
+    _write_png8(path, img, 0)
+
+
+def write_png_rgb8(path, img):
+    """Write a (H,W,3) RGB or (H,W,4) RGBA uint8 image as an 8-bit PNG in
+    that channel order (``cv2.imwrite`` of the array reversed to BGR)."""
+    img = np.ascontiguousarray(img)
+    if img.ndim != 3 or img.shape[2] not in (3, 4) or img.dtype != np.uint8:
+        raise ValueError(f"expected a (H,W,3|4) uint8 image, got {img.shape} {img.dtype}")
+    _write_png8(path, img, 2 if img.shape[2] == 3 else 6)

@@ -13,15 +13,15 @@ CAD mesh and defect heatmap (the capture path), of a scene laid out as
 PNG decoding is `io/png.py`, and resizing, the grey conversion, Otsu's
 threshold and the morphology of the auto-mask reimplement OpenCV's rules in
 numpy, so no OpenCV is needed.  Frame i+1 is decoded on a background thread
-while frame i is in use, as the JAX reader does.  The colour crop that
-`get_heatmap` returns for the viewer's overlay and the live Kinect reader
-are not ported.
+while frame i is in use, as the JAX reader does.  The live Kinect reader is
+not ported.
 """
 from __future__ import annotations
 
 import glob
 import json
 import logging
+import math
 import os
 import threading
 
@@ -45,6 +45,100 @@ def resize_nearest(img, width, height):
     xs = np.minimum(np.floor(np.arange(width) * ifx).astype(np.int64), W - 1)
     ys = np.minimum(np.floor(np.arange(height) * ify).astype(np.int64), H - 1)
     return img[ys[:, None], xs[None, :]]
+
+
+def _area_taps(ssize, dsize):
+    """OpenCV's computeResizeAreaTab for one axis (scale = src / dst >= 1):
+    every destination cell's (source index, float32 weight) pairs in
+    OpenCV's order, padded to (dsize, taps) with weight 0."""
+    scale = 1.0 / (dsize / ssize)
+    rows = []
+    for d in range(dsize):
+        f1 = d * scale
+        f2 = f1 + scale
+        cell = min(scale, ssize - f1)
+        s2 = min(math.floor(f2), ssize - 1)
+        s1 = min(math.ceil(f1), s2)
+        taps = [(s1 - 1, (s1 - f1) / cell)] if s1 - f1 > 1e-3 else []
+        taps += [(s, 1.0 / cell) for s in range(s1, s2)]
+        if f2 - s2 > 1e-3:
+            taps.append((s2, min(min(f2 - s2, 1.0), cell) / cell))
+        rows.append(taps)
+    n = max(len(t) for t in rows)
+    idx = np.zeros((dsize, n), np.int64)
+    w = np.zeros((dsize, n), np.float32)
+    for d, taps in enumerate(rows):
+        for k, (s, a) in enumerate(taps):
+            idx[d, k], w[d, k] = s, a
+    return idx, w
+
+
+def _area_linear_taps(dsize, ssize):
+    """The two taps and 11-bit fixed-point weights OpenCV's INTER_AREA uses
+    along an axis it does not shrink (its bilinear emulation): s =
+    floor(d * scale), weight frac((d + 1) - (s + 1) / scale) on s + 1; at
+    the last source sample the tap is single.  Returns (s0, s1, w0, w1,
+    single)."""
+    inv = dsize / ssize
+    scale = 1.0 / inv
+    d = np.arange(dsize)
+    s = np.floor(d * scale).astype(np.int64)
+    f = ((d + 1) - (s + 1) * inv).astype(np.float32)
+    f = np.where(f <= 0, np.float32(0), f - np.floor(f)).astype(np.float32)
+    single = s + 1 >= ssize
+    last = s >= ssize - 1
+    s = np.where(last, ssize - 1, s)
+    f = np.where(last, np.float32(0), f)
+    w1 = np.rint(f * np.float32(2048)).astype(np.int64)
+    w0 = np.rint((np.float32(1) - f) * np.float32(2048)).astype(np.int64)
+    return s, np.minimum(s + 1, ssize - 1), w0, w1, single
+
+
+def resize_area(img, width, height):
+    """``cv2.resize(img, (width, height), interpolation=cv2.INTER_AREA)`` of
+    a uint8 (H,W) or (H,W,C) image, as OpenCV computes it:
+    - shrinking both axes by whole factors: the block sums, rounded as
+      (sum + 2) >> 2 for 2x2 blocks and as rint(float32(sum) / area) else;
+    - shrinking both axes otherwise: area weights (computeResizeAreaTab),
+      a horizontal then a vertical float32 pass in OpenCV's order, rint;
+    - otherwise OpenCV's bilinear emulation in 11-bit fixed point, the
+      vertical pass as its vector code computes it (a 16-bit multiply-high
+      of the 4-bit-shifted rows, then a rounding shift by 2).
+    A same-size call is a copy."""
+    H, W = img.shape[:2]
+    if (H, W) == (height, width):
+        return img.copy()
+    if img.dtype != np.uint8:
+        raise ValueError(f"resize_area takes uint8 images, got {img.dtype}")
+    ex = (1,) * (img.ndim - 2)
+    sx, sy = 1.0 / (width / W), 1.0 / (height / H)
+    if sx >= 1 and sy >= 1:
+        ix, iy = int(round(sx)), int(round(sy))
+        if abs(sx - ix) < np.finfo(float).eps and abs(sy - iy) < np.finfo(float).eps:
+            s = img.astype(np.int32).reshape((height, iy, width, ix) + img.shape[2:]).sum(
+                axis=(1, 3))
+            if (ix, iy) == (2, 2):
+                return ((s + 2) >> 2).astype(np.uint8)
+            out = np.rint(s.astype(np.float32) * np.float32(1.0 / (ix * iy)))
+            return np.clip(out, 0, 255).astype(np.uint8)
+        xi, xw = _area_taps(W, width)
+        yi, yw = _area_taps(H, height)
+        src = img.astype(np.float32)
+        buf = np.zeros((H, width) + img.shape[2:], np.float32)
+        for k in range(xi.shape[1]):
+            buf = buf + src[:, xi[:, k]] * xw[:, k].reshape((1, width) + ex)
+        out = yw[:, 0].reshape((height, 1) + ex) * buf[yi[:, 0]]
+        for k in range(1, yi.shape[1]):
+            out = out + yw[:, k].reshape((height, 1) + ex) * buf[yi[:, k]]
+        return np.clip(np.rint(out), 0, 255).astype(np.uint8)
+    x0, x1, a0, a1, single = _area_linear_taps(width, W)
+    y0, y1, b0, b1, _ = _area_linear_taps(height, H)
+    src = img.astype(np.int64)
+    rows = src[:, x0] * a0.reshape((1, width) + ex) + src[:, x1] * a1.reshape((1, width) + ex)
+    rows = np.where(single.reshape((1, width) + ex), src[:, x0] * 2048, rows)
+    m0 = ((rows[y0] >> 4) * b0.reshape((height, 1) + ex)) >> 16
+    m1 = ((rows[y1] >> 4) * b1.reshape((height, 1) + ex)) >> 16
+    return np.clip((m0 + m1 + 2) >> 2, 0, 255).astype(np.uint8)
 
 
 def _linear_taps(dst, src):
@@ -306,21 +400,34 @@ class DataReader:
         out[:3, -1] *= 1000
         return out
 
-    def get_heatmap(self):
-        """heatmap/0002.npy normalised to [0,1] in float32, resized to the
-        colour frame's shorter native side (OpenCV's INTER_LINEAR) and
-        centred on a float64 canvas of the native colour size.
-        Returns (heatmap_full (H0,W0) float64, heatmap_vis float32)."""
-        heatmap = np.load(f"{self.base_dir}/heatmap/0002.npy")
-        heatmap = heatmap - np.min(heatmap)
+    def get_heatmap(self, color_image):
+        """heatmap/0002.npy normalised to [0,1], resized to the colour frame's
+        shorter native side (OpenCV's INTER_LINEAR) and centred on a float64
+        canvas of the native colour size; and the crop of @color_image that
+        the heatmap covers (INTER_AREA to the heatmap's scale, a centre crop,
+        INTER_NEAREST to the same side), which the overlay blends with it.
+        Returns (heatmap_full (H0,W0) float64, color_original, heatmap_vis
+        float32, color_original)."""
+        heatmap_data = np.load(f"{self.base_dir}/heatmap/0002.npy")
+        heatmap_size = heatmap_data.shape[0]
+        scale = heatmap_size / min(color_image.shape[:2])
+        new_height = int(color_image.shape[0] * scale)
+        new_width = int(color_image.shape[1] * scale)
+        color_resized = resize_area(color_image, new_width, new_height)
+        start_y = (new_height - heatmap_size) // 2
+        start_x = (new_width - heatmap_size) // 2
+        color_cropped = color_resized[start_y : start_y + heatmap_size,
+                                      start_x : start_x + heatmap_size]
+        heatmap = heatmap_data - np.min(heatmap_data)
         heatmap = heatmap / np.max(heatmap)
         H0 = int(self.color_H / self.downscale)
         W0 = int(self.color_W / self.downscale)
         output_size = min(H0, W0)
         heatmap_vis = resize_linear(heatmap, output_size, output_size)
+        color_original = resize_nearest(color_cropped, output_size, output_size)
         heatmap_full = np.zeros((H0, W0))
         y_start = (H0 - output_size) // 2
         x_start = (W0 - output_size) // 2
         heatmap_full[y_start : y_start + output_size,
                      x_start : x_start + output_size] = heatmap_vis
-        return heatmap_full, heatmap_vis
+        return heatmap_full, color_original, heatmap_vis, color_original

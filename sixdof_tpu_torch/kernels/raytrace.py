@@ -34,6 +34,10 @@ MU = 2.0 ** -80     # underflow margin
 RANGE = 2.0 ** 40   # a non-zero input's magnitude: below RANGE ...
 TINY = 2.0 ** -60   # ... and at least TINY
 SPREAD = 2.0 ** -20  # rescale a block's box when its axis holds this share
+# csrc/ray_mesh.cu indexes rays as 3 r + i and walks the triangles in int
+# steps of THREADS: the counts it takes
+MAX_RAYS = (2 ** 31 - 1) // 3
+MAX_TRIS = 2 ** 31 - 1 - THREADS
 
 
 def _bind(lib):
@@ -249,6 +253,9 @@ def ray_mesh_intersect(origins, dirs, valid, tris):
     if origins.device.type != "cuda":
         raise ValueError(f"ray_mesh_intersect: unsupported device {origins.device}")
     N, T = origins.shape[0], tris.shape[0]
+    if N > MAX_RAYS or T > MAX_TRIS:
+        raise ValueError(f"ray_mesh_intersect takes at most {MAX_RAYS} rays and {MAX_TRIS} "
+                         f"triangles a launch, got {N} and {T}")
     for name, x, shape, dtype in (("origins", origins, (N, 3), torch.float32),
                                   ("dirs", dirs, (N, 3), torch.float32),
                                   ("valid", valid, (N,), torch.bool),

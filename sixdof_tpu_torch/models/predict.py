@@ -11,6 +11,10 @@ tensors that run eagerly on the caller's device:
   register_pipeline_jit        register_pipeline
   track_pose_jit               track_pose (with _track_depth_polish)
 
+The predictors' `predict()` (one refine or score call, the staged register
+path's stages), the scorer's multi-chunk tournament and the refiner's crop
+visualisation (`_make_vis`) keep the JAX package's keyword names.
+
 Every hypothesis render goes through `ops/rasterize.py::render_batch`, so
 through raster kernel K1 on the card; `plain_raster=True` routes them
 through its plain PyTorch version instead.  Geometry is fp32; the networks
@@ -413,9 +417,66 @@ class PoseRefinePredictor(_PredictorBase):
         self.model = self._build(RefineNet(c_in=self.cfg["c_in"], rot_rep=self.cfg["rot_rep"]),
                                  "refiner", params, seed, refine_state_dict, ckpt_dir)
 
+    def predict(self, rgb, depth, K, ob_in_cams, xyz_map, normal_map=None, get_vis=False,
+                mesh=None, mesh_tensors: MeshArrays = None, glctx=None, mesh_diameter=None,
+                iteration=5, out_hw=None, backface_cull=None, plain_raster=False):
+        """@iteration refine steps of the poses @ob_in_cams (N,4,4) against
+        the frame (@rgb (H,W,3) uint8 or float, @xyz_map (H,W,3)) at @out_hw
+        (default the cfg's input_resize).  @plain_raster: render through
+        K1's plain version (a comparison run).  Returns (poses (N,4,4)
+        tensor, vis: the crop grid of _make_vis when @get_vis, else None)."""
+        dev = self.device
+        rgb01 = to_rgb01(rgb, dev)
+        xyz = torch.as_tensor(xyz_map, dtype=torch.float32, device=dev)
+        K = torch.as_tensor(K, dtype=torch.float32, device=dev)
+        poses = refine_poses(
+            self.model, mesh_tensors, torch.as_tensor(ob_in_cams, dtype=torch.float32,
+                                                      device=dev),
+            rgb01, xyz, K, float(mesh_diameter), float(self.cfg["crop_ratio"]),
+            float(self.cfg["trans_normalizer"]), float(self.cfg["rot_normalizer"]),
+            int(iteration),
+            out_hw=tuple(out_hw) if out_hw is not None else tuple(self.cfg["input_resize"]),
+            normalize_xyz=bool(self.cfg["normalize_xyz"]), rot_rep=self.cfg["rot_rep"],
+            # per call: one predictor may serve several meshes
+            backface_cull=bool(self.cfg.get("backface_cull", False)
+                               if backface_cull is None else backface_cull),
+            occ_sub=self.cfg.get("occ_sub", False), plain_raster=plain_raster,
+            compute_dtype=self.compute_dtype, trans_rep=self.cfg["trans_rep"])
+        vis = None
+        if get_vis:
+            vis = self._make_vis(mesh_tensors, poses, rgb01, xyz, K, mesh_diameter,
+                                 plain_raster=plain_raster)
+        return poses, vis
+
+    @torch.no_grad()
+    def _make_vis(self, mesh_arrays, poses, rgb01, xyz_map, K, mesh_diameter,
+                  plain_raster=False):
+        """The rendered and the real crops (colour) of the first 16 poses,
+        side by side a row each, as one uint8 RGB image."""
+        from ..utils.vis import make_grid_image
+
+        A, B, _, _ = _make_AB(mesh_arrays, poses, rgb01, xyz_map, K,
+                              float(self.cfg["crop_ratio"]), float(mesh_diameter),
+                              tuple(self.cfg["input_resize"]),
+                              bool(self.cfg["normalize_xyz"]), 0.001,
+                              plain_raster=plain_raster)
+        rows = []
+        for i in range(min(16, A.shape[0])):
+            ra = (A[i, ..., :3] * 255).cpu().numpy().astype(np.uint8)
+            rb = (B[i, ..., :3] * 255).cpu().numpy().astype(np.uint8)
+            rows.append(make_grid_image([ra, rb], nrow=2))
+        return make_grid_image(rows, nrow=1)
+
+
+def _host(x):
+    """A score vector as a numpy array (tensors from any device)."""
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
 
 class ScorePredictor(_PredictorBase):
-    """Scorer: weights and @device as for PoseRefinePredictor."""
+    """Scorer: weights and @device as for PoseRefinePredictor.  A cfg
+    "max_batch" scores more poses than that in a tournament of chunks
+    (`predict`)."""
 
     def __init__(self, device=None, cfg: Optional[dict] = None, params=None, seed=1,
                  compute_dtype=torch.bfloat16, ckpt_dir=None):
@@ -423,3 +484,62 @@ class ScorePredictor(_PredictorBase):
                     None if params is not None else ckpt_dir)
         self.model = self._build(ScoreNetMultiPair(c_in=self.cfg["c_in"]), "scorer", params,
                                  seed, score_state_dict, ckpt_dir)
+
+    def predict(self, rgb, depth, K, ob_in_cams, normal_map=None, get_vis=False, mesh=None,
+                mesh_tensors: MeshArrays = None, glctx=None, mesh_diameter=None,
+                out_hw=None, backface_cull=None, plain_raster=False):
+        """Scores of the poses @ob_in_cams (N,4,4) against the frame (@rgb,
+        @depth in metres, already filtered) at @out_hw, in the cfg's
+        score_mode ("network" where the cfg has none, as in the JAX
+        predictor).  More than the cfg's max_batch poses go through
+        `_tournament`.  Returns (scores (N,) tensor, None)."""
+        dev = self.device
+        rgb01 = to_rgb01(rgb, dev)
+        K = torch.as_tensor(K, dtype=torch.float32, device=dev)
+        xyz_map = depth2xyzmap(torch.as_tensor(depth, dtype=torch.float32, device=dev), K)
+
+        def score_fn(poses):
+            return score_poses(
+                self.model, mesh_tensors, torch.as_tensor(poses, dtype=torch.float32, device=dev),
+                rgb01, xyz_map, K, float(mesh_diameter), float(self.cfg["crop_ratio"]),
+                out_hw=tuple(out_hw) if out_hw is not None else tuple(self.cfg["input_resize"]),
+                normalize_xyz=bool(self.cfg["normalize_xyz"]),
+                mode=self.cfg.get("score_mode", "network"),
+                backface_cull=bool(self.cfg.get("backface_cull", False)
+                                   if backface_cull is None else backface_cull),
+                plain_raster=plain_raster, compute_dtype=self.compute_dtype)
+
+        max_batch = self.cfg.get("max_batch")
+        n = len(ob_in_cams)
+        if max_batch is None or n <= max_batch:
+            return score_fn(ob_in_cams), None
+        # chunks of 1 elect themselves winner forever: never terminates
+        scores = self._tournament(score_fn, _host(torch.as_tensor(ob_in_cams)),
+                                  max(2, int(max_batch)))
+        return scores.to(dev), None
+
+    @staticmethod
+    def _tournament(score_fn, poses_np, max_batch):
+        """Multi-chunk elimination: each round splits the surviving poses
+        into chunks of @max_batch (the last padded by repeating the first
+        survivor) and keeps each chunk's argmax; the final round's scores
+        + 100 land in the global vector.  An eliminated pose keeps the
+        score of its last chunk (not 0), so a top-K cut over the vector
+        ranks it by quality.  Returns the (N,) float32 scores (CPU tensor)."""
+        n = len(poses_np)
+        global_ids = np.arange(n)
+        scores_global = np.zeros(n, dtype=np.float32)
+        while True:
+            m = len(global_ids)
+            if m <= max_batch:
+                scores_global[global_ids] = _host(score_fn(poses_np[global_ids])) + 100.0
+                return torch.from_numpy(scores_global)
+            pad = (-m) % max_batch
+            # duplicates score alike, so a padded winner is still a real pose id
+            padded = np.concatenate([global_ids, np.repeat(global_ids[:1], pad)])
+            winners = []
+            for chunk in padded.reshape(-1, max_batch):
+                s = _host(score_fn(poses_np[chunk]))
+                scores_global[chunk] = s
+                winners.append(chunk[int(np.argmax(s))])
+            global_ids = np.asarray(winners)

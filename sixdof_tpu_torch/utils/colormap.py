@@ -1,8 +1,7 @@
 """JET colormap without matplotlib or OpenCV.
 
-Port of `sixdof_tpu/utils/colormap.py::jet_colormap`, which colours the
-defect point clouds.  The overlay form (`apply_jet`) feeds the viewer and
-is not ported.
+Port of `sixdof_tpu/utils/colormap.py`: `jet_colormap` colours the defect
+point clouds, `apply_jet` the heatmap overlay and the depth visualisation.
 """
 from __future__ import annotations
 
@@ -17,3 +16,14 @@ def jet_colormap(x):
     g = np.interp(x, [0.0, 0.125, 0.375, 0.64, 0.91, 1.0], [0.0, 0.0, 1.0, 1.0, 0.0, 0.0])
     b = np.interp(x, [0.0, 0.11, 0.34, 0.65, 1.0], [0.5, 1.0, 1.0, 0.0, 0.0])
     return np.stack([r, g, b], axis=-1)
+
+
+# apply_jet's colour of each uint8 level: the JAX package's per-pixel
+# formula, evaluated once
+_JET_BGR_U8 = (jet_colormap(np.arange(256) / 255.0)[:, ::-1] * 255).astype(np.uint8)
+
+
+def apply_jet(gray_u8):
+    """uint8 (H,W) -> BGR uint8 (H,W,3), the JAX package's stand-in for
+    cv2.applyColorMap(..., COLORMAP_JET)."""
+    return _JET_BGR_U8[np.asarray(gray_u8, dtype=np.uint8)]

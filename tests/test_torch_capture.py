@@ -63,7 +63,7 @@ def scene():
         pose = r.get_gt_pose(f)
         out[f"pose{f}"] = pose
         out[f"init{f}"] = r.color_to_depth @ r.scale_translation_to_millimeters(pose)
-    heatmap, _ = r.get_heatmap()
+    heatmap = r.get_heatmap(r.get_color(0))[0]
     rays, inten = compute_rays(heatmap_to_points(heatmap, 0.75), r.color_pinhole)
     mask = np.ones(len(rays), bool)
     mask[::11] = False  # some rays masked

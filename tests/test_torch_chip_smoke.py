@@ -1,11 +1,14 @@
 """chip_smoke.py rehearsed on the CPU at a tiny size: every phase runs (K1
 and K2 through their plain versions, the pose server twice on the bundled
-weights, the accuracy phase, the capture path and the run loop twice) and
-the kernels line has the keys the card run reports."""
+weights, the accuracy phase, the capture path and the run loop twice, the
+loop at --debug 2 and in viewer mode, the point-click path on a crust and
+the --icp registration) and the kernels line has the keys the card run
+reports; a phase that fails stops the script before its result."""
 import json
 import os
 import sys
 
+import pytest
 import torch
 
 # The suite runs in several worker processes at once (pytest-xdist): one torch
@@ -26,7 +29,9 @@ def test_chip_smoke_rehearsal_on_cpu(capsys):
     phases = [x.get("phase") for x in lines]
     assert phases.count("k1") == 5 and "pose" in phases
     assert phases.count("k2") == 4 and "capture" in phases
-    assert phases.index("pose") < phases.index("accuracy") < phases.index("capture")
+    assert phases.index("pose") < phases.index("accuracy") < phases.index("capture") \
+        < phases.index("debug") < phases.index("viewer") < phases.index("point_click") \
+        < phases.index("icp_global")
     assert lines[-1] == {"kernels": kernels}
     assert [k["name"] for k in kernels] == ["raster_zbuffer", "ray_mesh_intersect"]
     for k in kernels:
@@ -72,3 +77,59 @@ def test_chip_smoke_rehearsal_on_cpu(capsys):
     assert cap["a"]["refine_fitness"] >= 0.9 and cap["a"]["defect_points"] > 0
     assert [c["frame"] for c in cap["b"]["captures"]] == [0, 2]
     assert cap["vs_plain"]["loop_tf_max_abs_diff"] == 0.0
+    # --debug 2: the staged register's images, decoded
+    dbg = next(x for x in lines if x.get("phase") == "debug")
+    assert set(dbg["files"]) == {"vis_refiner.png", "track_vis/0001.png",
+                                 "overlay/overlay_0.png"}
+    assert dbg["staged_register_s"] > 0 and dbg["fused_register_s"] > 0
+    # the viewer: the button pressed after frame 0 captured on frame 1
+    view = next(x for x in lines if x.get("phase") == "viewer")
+    assert view["captures"] == [0, 1] and view["updates"][0]["page_has_button"]
+    assert view["updates"][1]["seq"] > view["updates"][0]["seq"]
+    assert all(u["points"] == u["state_points"] > 0 for u in view["updates"])
+    # the point-click path on the crust, and the heatmap's rays against it
+    pc = [x for x in lines if x.get("phase") == "point_click"]
+    assert [x["shape"] for x in pc] == ["clicks", "heatmap"]
+    assert all(x["bit_equal"] and x["hits"] > 0 and x["triangles"] > 1000 for x in pc)
+    assert pc[0]["points_bit_equal"] and pc[1]["same_rays_as_cpu"]
+    assert kernels[1]["launches"] == pc[0]["launches"] == 0  # the CPU takes plain K2
+    # --icp: no valid RANSAC trial on synth_box in any of the 10 attempts
+    icp = next(x for x in lines if x.get("phase") == "icp_global")
+    assert icp["icp"]["valid_trials"] == [0] * 10 and icp["icp"]["fitness"] == 0.0
+    assert icp["from_annotated"]["fitness"] >= 0.9
+    assert {"fpfh", "ransac", "icp", "total"} <= set(icp["icp"]["seconds"])
+
+
+def test_a_failing_phase_stops_the_script(monkeypatch, capsys):
+    """On the card, main() lets a phase's error through (a non-zero exit)
+    and prints no result line."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+
+    def fail(*_, **__):
+        raise RuntimeError("the viewer did not serve its page")
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(chip_smoke, "_nvidia_smi", lambda: "a card, 700.00 W")
+    monkeypatch.setattr(chip_smoke, "run", fail)
+    with pytest.raises(RuntimeError, match="viewer"):
+        chip_smoke.main()
+    assert '"ok"' not in capsys.readouterr().out
+
+
+def test_point_click_phase_fails_on_a_kernel_disagreement(monkeypatch):
+    """phase point_click holds K2 (here a stand-in one ulp off) to its plain
+    version on the crust."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+
+    from sixdof_tpu_torch.kernels import raytrace as k2
+
+    def off_by_one_ulp(o, d, m, tris):
+        t = k2.ray_mesh_intersect_plain(o, d, m, tris)
+        return torch.nextafter(t, torch.full_like(t, float("inf")))
+
+    monkeypatch.setattr(k2, "ray_mesh_intersect", off_by_one_ulp)
+    scene = os.path.join(REPO, "demo_data", "synth_box")
+    with pytest.raises(RuntimeError, match="disagrees"):
+        chip_smoke.phase_point_click(torch.device("cpu"), scene, small=True, n_time=1)

@@ -34,11 +34,15 @@ PTS_RTOL = 1e-6
 
 @pytest.mark.parametrize("shorter_side", [None, 240, 123])
 def test_get_heatmap_matches_jax(shorter_side):
-    """480 -> 480 at the native size and at 240 (a copy); 480 -> 476 at
-    shorter_side 123, where int() rounding makes it a real resample."""
+    """JAX's 4-tuple.  The heatmap: 480 -> 480 at the native size and at 240
+    (a copy); 480 -> 476 at shorter_side 123, where int() rounding makes it
+    a real resample.  The colour crop bit-equal: the frame itself at the
+    native size, enlarged by INTER_AREA at 240 (x2) and 123 (x3.9)."""
     jr, tr = JReader(SCENE, shorter_side=shorter_side), TReader(SCENE, shorter_side=shorter_side)
-    full_j, _, vis_j, _ = jr.get_heatmap(jr.get_color(0))
-    full_t, vis_t = tr.get_heatmap()
+    full_j, col_j, vis_j, col2_j = jr.get_heatmap(jr.get_color(0))
+    full_t, col_t, vis_t, col2_t = tr.get_heatmap(tr.get_color(0))
+    assert col_t.dtype == col_j.dtype == np.uint8 and col2_t is col_t and col2_j is col_j
+    np.testing.assert_array_equal(col_t, col_j)
     assert full_t.dtype == full_j.dtype == np.float64 and vis_t.dtype == vis_j.dtype
     assert full_t.shape == full_j.shape and vis_t.shape == vis_j.shape
     if shorter_side == 123:
@@ -85,7 +89,8 @@ def test_reader_capture_inputs_match_jax():
 
 
 def test_rays_and_colours_match_jax():
-    heatmap, _ = TReader(SCENE).get_heatmap()
+    reader = TReader(SCENE)
+    heatmap = reader.get_heatmap(reader.get_color(0))[0]
     pt, pj = tdp.heatmap_to_points(heatmap, 0.75), jdp.heatmap_to_points(heatmap, 0.75)
     assert pt == pj and len(pt) == 587
     K = tdp.PinholeCameraIntrinsic.from_params(640, 480, 600.0, 600.0, 320.0, 240.0)
@@ -111,7 +116,7 @@ def test_ray_tracing_matches_jax(frame):
     """The app's frame-0 ray trace: model.obj posed (depth camera, mm) by
     the annotated pose, heatmap threshold 0.75."""
     tr = TReader(SCENE)
-    heatmap, _ = tr.get_heatmap()
+    heatmap = tr.get_heatmap(tr.get_color(0))[0]
     pose = tr.color_to_depth @ tr.scale_translation_to_millimeters(tr.get_gt_pose(frame))
     mesh_t = tr.target_mesh.copy().transform(pose)
     mesh_j = jmio.TriMesh(mesh_t.vertices.copy(), mesh_t.faces.copy())

@@ -9,7 +9,7 @@ import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ["jax", "flax", "orbax", "tensorstore", "sixdof_tpu", "cv2", "PIL", "imageio",
-             "zstandard", "h5py", "open3d", "dash", "plotly"]
+             "zstandard", "h5py", "open3d", "dash", "plotly", "matplotlib"]
 
 
 def test_import_graph_has_no_jax_or_host_libraries():
@@ -25,6 +25,10 @@ bad = [n for n in sys.modules if n.split(".")[0] in {FORBIDDEN!r}]
 print("BAD", bad)
 print("N", sum(n.startswith("sixdof_tpu_torch") for n in sys.modules))
 print("CKPT", "sixdof_tpu_torch.models.checkpoint" in sys.modules)
+print("SLICE", all(m in sys.modules for m in ("sixdof_tpu_torch.app.web_vis",
+                                              "sixdof_tpu_torch.ops.features",
+                                              "sixdof_tpu_torch.ops.marching",
+                                              "sixdof_tpu_torch.utils.vis")))
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
@@ -32,8 +36,9 @@ print("CKPT", "sixdof_tpu_torch.models.checkpoint" in sys.modules)
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
     n = int(out.stdout.split("N ")[1].split()[0])
-    assert n >= 31  # every submodule was imported
+    assert n >= 35  # every submodule was imported
     assert "CKPT True" in out.stdout  # the checkpoint loader among them
+    assert "SLICE True" in out.stdout  # and the viewer, features, marching, drawings
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):

@@ -143,6 +143,49 @@ def test_ray_mesh_kernel_matches_plain(card, n_rays, mask_every):
     assert torch.isinf(tk[~m]).all()
 
 
+@pytest.fixture(scope="module")
+def crust():
+    """The point-click path's crust: create_mesh of mesh/model.ply (64^3
+    grid, 169,900 triangles) posed by the annotated pose of frame 0 in the
+    colour camera (mm)."""
+    from sixdof_tpu_torch.app.defect_projection import create_mesh
+    from sixdof_tpu_torch.io.mesh_io import load_point_cloud
+
+    scene = os.path.join(REPO, "demo_data", "synth_box")
+    mesh = create_mesh(load_point_cloud(os.path.join(scene, "mesh", "model.ply")))
+    gt = np.loadtxt(os.path.join(scene, "annotated_poses", "0000.txt"))
+    gt[:3, 3] *= 1000.0
+    return mesh.transform(gt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("origin", ["camera", "inside"])
+def test_ray_mesh_kernel_matches_plain_on_a_crust(card, crust, origin):
+    """Every 8th pixel of the frame from the camera centre, and the same
+    directions from the crust's centre (every ray starts inside it, so
+    every block keeps triangles on all sides)."""
+    from sixdof_tpu_torch.ops.raytrace import mesh_to_tri_verts
+
+    assert len(crust.faces) == 169_900
+    tri, tri_mask = mesh_to_tri_verts(crust.vertices, crust.faces)
+    tris = k2.pack_tris(torch.tensor(tri, device=card), torch.tensor(tri_mask, device=card))
+    ys, xs = np.mgrid[0:480:8, 0:640:8]
+    dirs = np.stack([(xs - K_IMG[0, 2]) / K_IMG[0, 0], (ys - K_IMG[1, 2]) / K_IMG[1, 1],
+                     np.ones_like(xs, dtype=np.float32)], axis=-1).reshape(-1, 3)
+    d = torch.tensor(dirs / np.linalg.norm(dirs, axis=1, keepdims=True), dtype=torch.float32,
+                     device=card)
+    o = torch.zeros_like(d)
+    if origin == "inside":
+        o += torch.tensor(crust.vertices.mean(axis=0), dtype=torch.float32, device=card)
+    m = torch.ones(len(d), dtype=torch.bool, device=card)
+    tk = k2.ray_mesh_intersect(o, d, m, tris)
+    tp = k2.ray_mesh_intersect_plain(o, d, m, tris)
+    torch.cuda.synchronize()
+    assert torch.equal(tk, tp)
+    hits = int(torch.isfinite(tk).sum())
+    assert hits == len(d) if origin == "inside" else hits > 0
+
+
 @pytest.mark.cuda
 def test_ray_mesh_kernel_edge_cases(card):
     o, d, m, tris = _k2_case(card, 300, seed=1)

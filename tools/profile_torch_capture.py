@@ -53,7 +53,7 @@ def main():
     reader = DataReader(SCENE)
     params = reader.parameters
     init = reader.color_to_depth @ reader.scale_translation_to_millimeters(reader.get_gt_pose(0))
-    heatmap, _ = reader.get_heatmap()
+    heatmap = reader.get_heatmap(reader.get_color(0))[0]
     rays, inten = compute_rays(heatmap_to_points(heatmap, 0.75), reader.color_pinhole)
     pose2 = torch.as_tensor(reader.get_gt_pose(2), dtype=torch.float32, device=dev)
     state = {}
