@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch/CUDA port's pose server and capture path on one NVIDIA
-card and check them.
+"""Run the PyTorch/CUDA port's pose server, capture path and trainer on one
+NVIDIA card and check them.
 
     python3 chip_smoke.py
 
@@ -70,8 +70,26 @@ non-zero without printing the final result:
            the CPU (the same valid RANSAC trials, 0 on synth_box, and the
            same fitness; seconds in FPFH, RANSAC and ICP), then
            determine_pose(icp=False) from the annotated pose (fitness >= 0.9)
-  kernels  each kernel the run launched, with its check and numbers (K2's
-           launches: the run loop's in capture (b) and point_click's)
+  train    the trainer (sixdof_tpu_torch/parallel/train.py) at its
+           configuration (batch 32 at 160x160, the scorer 4 scenes x 12,
+           clutter and sensor model on): refiner and scorer batches on
+           synth_box and a procedural object through K1 and through the
+           plain raster from the same draws (bit-equal), K1 timed at B=32
+           and B=48 160x160 without culling (phase line `train_k1`); a
+           textured box (seeded uv, 256x256 texture) written and read back
+           (equal), rendered at B=64 through both (bit-equal) and one
+           refiner step on it; the fixed-batch overfit at JAX's test
+           setting (below 0.8x in 40 steps) and the same at the trainer's
+           setting (reported); 10 refiner and 5 scorer steps round-robin
+           over both objects (K1 launches counted, 2 a step; batch and
+           update ms by CUDA events; busy share and launches of a step and
+           of its batch generation alone by the profiler; peak memory); the bundled weights' first losses beside
+           a fresh model's (the refiner's must be lower); the trained nets
+           written, loaded by the predictors (outputs bit-equal) and
+           registering frame 0 (a finite pose)
+  kernels  each kernel the run launched, with its check and numbers (K1's
+           launches: the pose phase's and the trainer's; K2's: the run
+           loop's in capture (b) and point_click's)
 
 The last line is {"ok": true, "device": {...}}.  Without CUDA the script
 exits 1 before any result.  `run(device="cpu", small=True)` rehearses every
@@ -246,9 +264,10 @@ def _device_us(fn, n, name):
     return us / count if count and us > 0 else None
 
 
-def phase_k1(device, cases, K, diameter, n_time):
+def phase_k1(device, cases, K, diameter, n_time, phase="k1", cull=True):
     """K1 against its plain version: zbuf bit-equal and tid equal on every
-    pixel.  @cases: (label, mesh arrays, poses, H, W)."""
+    pixel.  @cases: (label, mesh arrays, poses, H, W); @cull: backface
+    culling, as the pose server renders (the trainer does not cull)."""
     import torch
 
     from sixdof_tpu_torch.kernels.raster import rasterize_zbuffer, rasterize_zbuffer_plain
@@ -259,15 +278,15 @@ def phase_k1(device, cases, K, diameter, n_time):
     for label, mesh_arrays, poses, H, W in cases:
         B = poses.shape[0]
         tfs = compute_crop_window_tf_batch(poses, K, 1.2, (W, H), diameter)
-        s = zbuffer_setup(mesh_arrays, poses, K, tfs, backface_cull=True)
+        s = zbuffer_setup(mesh_arrays, poses, K, tfs, backface_cull=cull)
         coef, counts = s["coef_c"], s["counts"]
         zk, tk = rasterize_zbuffer(coef, counts, H, W)
         zp, tp = rasterize_zbuffer_plain(coef, counts, H, W)
         _sync(device)
         depth_err = float((zk - zp).abs().max())
         mismatch = int((tk != tp).sum())
-        rk = render_batch(mesh_arrays, poses, K, tfs, out_hw=(H, W), backface_cull=True)
-        rp = render_batch(mesh_arrays, poses, K, tfs, out_hw=(H, W), backface_cull=True,
+        rk = render_batch(mesh_arrays, poses, K, tfs, out_hw=(H, W), backface_cull=cull)
+        rp = render_batch(mesh_arrays, poses, K, tfs, out_hw=(H, W), backface_cull=cull,
                           plain_raster=True)
         render_err = max(float((rk[k] - rp[k]).abs().max()) for k in rk)
         # timings: kernel warm over many launches; plain over a few
@@ -297,7 +316,7 @@ def phase_k1(device, cases, K, diameter, n_time):
                    plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes > t_ops else "operations",
                    brute_bound_ms=brute_ms)
-        emit({"phase": "k1", **res})
+        emit({"phase": phase, **res})
         if depth_err > K1_DEPTH_ATOL or mismatch or render_err > K1_DEPTH_ATOL:
             raise RuntimeError(f"K1 disagrees with its plain version at {label}: {res}")
         results.append(res)
@@ -1057,6 +1076,277 @@ def phase_icp_global(device, scene, small):
     return res
 
 
+# the trainer: JAX's fixed-batch overfit setting (tests/test_parallel.py:56-103):
+# an 8-vertex box, K, diameter 0.1, batch 8 at 48x48, gradients clipped to
+# norm 1 then Adam 3e-4, 40 steps; the loss must end below 0.8x its first
+OVERFIT_BOX_V = [[-0.04, -0.03, -0.02], [0.04, -0.03, -0.02], [0.04, 0.03, -0.02],
+                 [-0.04, 0.03, -0.02], [-0.04, -0.03, 0.02], [0.04, -0.03, 0.02],
+                 [0.04, 0.03, 0.02], [-0.04, 0.03, 0.02]]
+OVERFIT_BOX_F = [[0, 2, 1], [0, 3, 2], [4, 5, 6], [4, 6, 7], [0, 1, 5], [0, 5, 4],
+                 [2, 3, 7], [2, 7, 6], [1, 2, 6], [1, 6, 5], [3, 0, 4], [3, 4, 7]]
+OVERFIT_K = [[300.0, 0, 80], [0, 300.0, 60], [0, 0, 1]]
+OVERFIT_RATIO = 0.8
+
+
+def _profiled(fn, device):
+    """Wall ms of @fn, and where the profiler sees the card: its busy ms
+    (the kernels' device time) and the kernel launches."""
+    import torch
+
+    if device.type != "cuda":
+        t0 = time.perf_counter()
+        fn()
+        return dict(wall_ms=(time.perf_counter() - t0) * 1e3, busy_ms=None, launches=None)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy, launches = 0.0, 0
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) == DeviceType.CUDA:
+            busy += float(getattr(e, "self_device_time_total", 0.0)
+                          or getattr(e, "self_cuda_time_total", 0.0))
+            launches += int(e.count)
+    return dict(wall_ms=wall * 1e3, busy_ms=busy / 1e3, launches=launches)
+
+
+def _step_times(trainers, n, gen, device):
+    """@n round-robin steps of @trainers, each split into batch generation
+    and forward/backward/update (CUDA events on the card); ms lists."""
+    import torch
+
+    marks = []
+    for i in range(n):
+        t = trainers[i % len(trainers)]
+        if device.type == "cuda":
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            ev[0].record()
+            batch = t.batch(gen)
+            ev[1].record()
+            t.update(batch)
+            ev[2].record()
+            marks.append(ev)
+        else:
+            t0 = time.perf_counter()
+            batch = t.batch(gen)
+            t1 = time.perf_counter()
+            t.update(batch)
+            marks.append((t0, t1, time.perf_counter()))
+    _sync(device)
+    if device.type == "cuda":
+        return ([a.elapsed_time(b) for a, b, _ in marks],
+                [b.elapsed_time(c) for _, b, c in marks])
+    return ([(b - a) * 1e3 for a, b, _ in marks], [(c - b) * 1e3 for _, b, c in marks])
+
+
+def phase_train(device, cfg, scene, small):
+    """The trainer (parallel/train.py) on the card: (1) its batches through
+    K1 against the same draws through the plain raster (bit-equal), K1
+    timed at the trainer's shapes; (2) a textured box written and read back
+    (uv and texture equal), rendered through K1 and the plain raster
+    (bit-equal), one refiner step on it; (3) the fixed-batch overfit at
+    JAX's test setting (gated) and at the trainer's (reported), then 10
+    refiner and 5 scorer steps round-robin over synth_box and a procedural
+    object (the K1 launches counted, each step split into batch generation
+    and update, the card's busy share, launches and peak memory); (4) the
+    bundled weights' first losses beside a from-scratch model's; (5) the
+    trained nets written, loaded by the predictors (outputs bit-equal) and
+    registering frame 0."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from sixdof_tpu_torch.estimater import FoundationPose
+    from sixdof_tpu_torch.io.mesh_io import TriMesh, load_mesh, load_obj, save_obj
+    from sixdof_tpu_torch.io.readers import DataReader
+    from sixdof_tpu_torch.kernels.raster import rasterize_zbuffer
+    from sixdof_tpu_torch.models.networks import RefineNet, ScoreNetMultiPair, init_flax_style
+    from sixdof_tpu_torch.models.predict import PoseRefinePredictor, ScorePredictor
+    from sixdof_tpu_torch.ops.geometry import compute_crop_window_tf_batch, compute_mesh_diameter
+    from sixdof_tpu_torch.ops.rasterize import make_mesh_arrays, render_batch
+    from sixdof_tpu_torch.parallel import train as tr
+    from sixdof_tpu_torch.parallel.procgen import procedural_objects
+
+    reader = DataReader(scene)
+    K_np = np.asarray(reader.color_K, dtype=np.float64)
+    K = torch.as_tensor(K_np, dtype=torch.float32, device=device)
+    mesh = load_mesh(os.path.join(scene, "mesh", "model_scaled_down.obj"))
+    mesh.vertices = mesh.vertices - (mesh.vertices.max(0) + mesh.vertices.min(0)) / 2
+    box = (make_mesh_arrays(mesh, device), K_np, compute_mesh_diameter(mesh.vertices))
+    # (the rehearsal takes the 80-triangle sphere: the plain raster is slow)
+    proc = procedural_objects(1, K_np, device, subdivisions=1 if small else 4)[0]
+    objects = (("synth_box", box), ("procedural", proc))
+    # the trainer's configuration (tools/train_torch_networks.py)
+    rcfg = tr.TrainConfig(batch_size=2 if small else 32,
+                          input_hw=(32, 32) if small else (160, 160), p_occlusion=0.5,
+                          p_sensor=0.5)
+    scfg = rcfg._replace(n_hypotheses=2 if small else 12, lr=3e-4)
+    n_steps = 3 if small else None
+    res = {}
+
+    # (1) batches through K1 against the plain raster, on the same draws
+    same, cases = {}, []
+    for label, (arrays, _, diam) in objects:
+        for net, draw, make, c in (("refiner", tr.refiner_draws, tr.make_refiner_batch, rcfg),
+                                   ("scorer", tr.scorer_draws, tr.make_scorer_batch, scfg)):
+            draws = draw(torch.Generator(device).manual_seed(7), c)
+            kern = make(draws, arrays, K, diam, c)
+            ref = make(draws, arrays, K, diam, c, plain_raster=True)
+            same[f"{net}_{label}"] = all(torch.equal(a, b) for a, b in zip(kern, ref))
+            if label == "synth_box":
+                if net == "refiner":
+                    poses = tr._perturb(draws["perturb"], tr._random_poses(draws["poses"]))[0]
+                else:
+                    poses = tr.scorer_hypotheses(draws, diam, c.n_hypotheses)[1]
+                cases.append((f"train_{net}", arrays, poses, *c.input_hw))
+    res["batches_bit_equal"] = same
+    if not all(same.values()):
+        raise RuntimeError(f"trainer batches through K1 disagree with the plain raster: {same}")
+    k1 = phase_k1(device, cases, K, box[2], n_time=2 if small else 50, phase="train_k1",
+                  cull=False)
+
+    # (2) a textured mesh: written, read back, rendered, one refiner step
+    rng = np.random.RandomState(3)
+    textured = TriMesh(mesh.vertices, mesh.faces, uv=rng.rand(len(mesh.vertices), 2),
+                       texture=rng.randint(0, 256, (256, 256, 3)).astype(np.uint8))
+    with tempfile.TemporaryDirectory() as tmp:
+        save_obj(os.path.join(tmp, "box.obj"), textured)
+        back = load_obj(os.path.join(tmp, "box.obj"))
+    tex_ok = np.array_equal(back.uv, textured.uv) and np.array_equal(back.texture,
+                                                                     textured.texture)
+    tarr = make_mesh_arrays(back, device)
+    hw = (32, 32) if small else (160, 160)
+    tposes = tr._random_poses(tr._pose_draws(torch.Generator(device).manual_seed(5),
+                                             4 if small else 64, rcfg.z_range))
+    tfs = compute_crop_window_tf_batch(tposes, K, 1.2, (hw[1], hw[0]), box[2])
+    rk = render_batch(tarr, tposes, K, tfs, out_hw=hw)
+    rp = render_batch(tarr, tposes, K, tfs, out_hw=hw, plain_raster=True)
+    tex_render_equal = all(torch.equal(rk[k], rp[k]) for k in rk)
+    tex_trainer = tr.RefinerTrainer(RefineNet(), tarr, K_np, box[2], rcfg, seed=0)
+    tex_loss = float(tex_trainer.step(torch.Generator(device).manual_seed(11)))
+    res["textured"] = dict(uv_texture_equal=bool(tex_ok), render_bit_equal=tex_render_equal,
+                           covered=float(rk["alpha"].mean()), refiner_step_loss=tex_loss)
+    if not (tex_ok and tex_render_equal and np.isfinite(tex_loss)):
+        raise RuntimeError(f"textured mesh check failed: {res['textured']}")
+
+    # (3a) the fixed-batch overfit at JAX's test setting, then at the trainer's
+    overfit = {}
+    obox = make_mesh_arrays(TriMesh(np.array(OVERFIT_BOX_V), np.array(OVERFIT_BOX_F)), device)
+    oK = torch.tensor(OVERFIT_K, dtype=torch.float32, device=device)
+    for label, c, lr, clip in (("jax_test_setting", tr.TrainConfig(batch_size=8,
+                                                                   input_hw=(48, 48)), 3e-4, 1.0),
+                               ("trainer_setting", rcfg, rcfg.lr, None)):
+        draws = tr.refiner_draws(torch.Generator(device).manual_seed(0), c)
+        batch = tr.make_refiner_batch(draws, obox, oK, 0.1, c)
+        model = init_flax_style(RefineNet(), torch.Generator().manual_seed(0)).to(device)
+        _sync(device)
+        t0 = time.perf_counter()
+        losses = tr.overfit_fixed_batch(model, batch, n_steps or 40, lr, c, clip)
+        overfit[label] = dict(batch=c.batch_size, hw=list(c.input_hw), lr=lr, clip=clip,
+                              first=losses[0], last=losses[-1], ratio=losses[-1] / losses[0],
+                              s=time.perf_counter() - t0)
+    res["overfit"] = overfit
+    emit({"phase": "train", "part": "batches", **res})
+    if not small and overfit["jax_test_setting"]["ratio"] >= OVERFIT_RATIO:
+        raise RuntimeError(f"the refiner did not overfit a fixed batch: {overfit}")
+
+    # (3b) round-robin training from scratch, fresh batches: the main path
+    rts = [tr.RefinerTrainer(RefineNet(), *box, rcfg, seed=0)]
+    rts.append(rts[0].sharing(*proc))
+    sts = [tr.ScorerTrainer(ScoreNetMultiPair(), *box, scfg, seed=1)]
+    sts.append(sts[0].sharing(*proc))
+    gen = torch.Generator(device).manual_seed(0)
+    if device.type == "cuda":  # first-call set-up stays out of the timings
+        rts[0].step(gen)
+        sts[0].step(gen)
+        torch.cuda.reset_peak_memory_stats(device)
+    _sync(device)
+    rasterize_zbuffer.launches = 0
+    steps = {}
+    for net, trainers, n in (("refiner", rts, n_steps or 10), ("scorer", sts, n_steps or 5)):
+        before = rasterize_zbuffer.launches
+        t0 = time.perf_counter()
+        gen_ms, upd_ms = _step_times(trainers, n, gen, device)
+        wall = time.perf_counter() - t0
+        steps[net] = dict(steps=n, s_per_step=wall / n, batch_ms=gen_ms, update_ms=upd_ms,
+                          batch_share=sum(gen_ms) / (sum(gen_ms) + sum(upd_ms)),
+                          k1_launches=rasterize_zbuffer.launches - before)
+    train_launches = rasterize_zbuffer.launches
+    for net, trainers in (("refiner", rts), ("scorer", sts)):
+        # whole steps, then batch generation alone (synchronised at its end)
+        for key, fn in (("step", lambda: [t.step(gen) for t in trainers]),
+                        ("batch", lambda: [t.batch(gen) for t in trainers])):
+            prof = _profiled(fn, device)
+            n = len(trainers)
+            steps[net][key + "_profile"] = dict(
+                calls=n, wall_ms=prof["wall_ms"] / n,
+                busy_ms=None if prof["busy_ms"] is None else prof["busy_ms"] / n,
+                busy_share=(None if prof["busy_ms"] is None
+                            else prof["busy_ms"] / prof["wall_ms"]),
+                launches=None if prof["launches"] is None else prof["launches"] / n)
+    res = dict(steps=steps, k1_launches=train_launches,
+               max_memory_allocated=(torch.cuda.max_memory_allocated(device)
+                                     if device.type == "cuda" else None))
+    if device.type == "cuda" and train_launches != 2 * (steps["refiner"]["steps"]
+                                                        + steps["scorer"]["steps"]):
+        raise RuntimeError(f"the trainer's renders did not launch K1 twice a step: {res}")
+
+    # (4) fine-tuning: the bundled weights' first losses beside from scratch
+    first = {}
+    for net, cls, model_cls, c, seed in (("refiner", tr.RefinerTrainer, RefineNet, rcfg, 0),
+                                         ("scorer", tr.ScorerTrainer, ScoreNetMultiPair, scfg, 1)):
+        bundled = cls(model_cls(), *box, c, params=tr.load_init_params(WEIGHTS, net))
+        scratch = cls(model_cls(), *box, c, seed=seed)
+        batch = bundled.batch(torch.Generator(device).manual_seed(21))
+        with torch.no_grad():
+            first[net] = dict(bundled=float(bundled.loss(*batch)),
+                              from_scratch=float(scratch.loss(*batch)))
+    res["first_loss"] = first
+    # (at the rehearsal's 32x32 crops the bundled nets are outside what they
+    # were trained on: reported, not held)
+    if not small and first["refiner"]["bundled"] >= first["refiner"]["from_scratch"]:
+        raise RuntimeError(f"the bundled refiner does not start below a fresh one: {first}")
+
+    # (5) checkpoint round trip into the predictors, then register frame 0
+    with tempfile.TemporaryDirectory() as tmp:
+        tr.save_params(tmp, "refiner", rts[0].model)
+        tr.save_params(tmp, "scorer", sts[0].model)
+        preds = (PoseRefinePredictor(device, ckpt_dir=tmp, compute_dtype=torch.float32),
+                 ScorePredictor(device, ckpt_dir=tmp, compute_dtype=torch.float32))
+        batch = rts[0].batch(torch.Generator(device).manual_seed(31))
+        sbatch = sts[0].batch(torch.Generator(device).manual_seed(31))
+        with torch.no_grad():
+            r_out = (rts[0].model(*batch[:2]), preds[0].model(*batch[:2]))
+            s_out = (sts[0].model(*sbatch[:2], L=scfg.n_hypotheses),
+                     preds[1].model(*sbatch[:2], L=scfg.n_hypotheses))
+        round_trip = all(torch.equal(a[k], b[k]) for a, b in (r_out, s_out) for k in a)
+        refiner = PoseRefinePredictor(device, cfg={"input_resize": cfg.input_resize},
+                                      ckpt_dir=tmp)
+        scorer = ScorePredictor(device, cfg={"input_resize": cfg.input_resize}, ckpt_dir=tmp)
+    est = FoundationPose(model_pts=mesh.vertices, model_normals=mesh.vertex_normals,
+                         mesh=load_mesh(os.path.join(scene, "mesh", "model_scaled_down.obj")),
+                         scorer=scorer, refiner=refiner, device=device, prune_to=cfg.prune_to,
+                         coarse_hw=cfg.coarse_hw, depth_polish=not small)
+    if small:
+        est.rot_grid = est.rot_grid[:: len(est.rot_grid) // 8][:8]
+    frames = DataReader(scene, shorter_side=cfg.shorter_side)  # as phase pose reads them
+    color, depth = frames.get_color(0), frames.get_depth(0)
+    pose = est.register(K=frames.color_K, rgb=color, depth=depth,
+                        ob_mask=frames.get_mask(color, 0).astype(bool),
+                        iteration=cfg.est_refine_iter)
+    res["checkpoint"] = dict(outputs_bit_equal=round_trip,
+                             register_pose_finite=bool(np.isfinite(pose).all()))
+    emit({"phase": "train", "part": "training", **res})
+    if not (round_trip and res["checkpoint"]["register_pose_finite"]):
+        raise RuntimeError(f"checkpoint round trip failed: {res['checkpoint']}")
+    return dict(k1=k1, launches=train_launches)
+
+
 def _rot_deg(R1, R2):
     """Rotation angle between R1 and R2 from the chord ||R1 - R2||_F
     (= 2 sqrt(2) sin(angle / 2)), stable near zero unlike the trace form."""
@@ -1170,14 +1460,17 @@ def run(device="cuda", small=False):
     phase_viewer(dev, cfg, scene, small, refiner, scorer)
     clicks = phase_point_click(dev, scene, small, n_time=2 if small else 20)
     phase_icp_global(dev, scene, small)
+    # the trainer: its batches through K1 at the trainer's shapes, textured
+    # meshes, training from scratch and from the bundled weights
+    train = phase_train(dev, cfg, scene, small)
 
     main_shape = k1[0]
     kernels = [{
         "name": "raster_zbuffer", "route": "cuda",
         "source": "sixdof_tpu_torch/csrc/raster_zbuffer.cu",
         "replaces": "sixdof_tpu/ops/pallas/raster_kernel.py:188",
-        "launches": kern["launches"],
-        "max_abs_err": max(r["max_abs_depth_err"] for r in k1),
+        "launches": kern["launches"] + train["launches"],
+        "max_abs_err": max(r["max_abs_depth_err"] for r in k1 + train["k1"]),
         "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"], "bound_by": main_shape["bound_by"],
         "library_ms": None,

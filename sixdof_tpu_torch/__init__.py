@@ -10,9 +10,11 @@ its own copy of every module its path needs (it imports nothing of
               capture program, ray-mesh intersection
   kernels/    wrappers around the hand-written CUDA kernels (csrc/), each
               with its plain PyTorch version beside it
-  models/     RefineNet / ScoreNetMultiPair (nn.Module), weight conversion,
-              the predictors
-  io/         PNG decoding, mesh IO, the demo-scene reader
+  models/     RefineNet / ScoreNetMultiPair (nn.Module) and their flax-style
+              initialisation, weight conversion, checkpoints, the predictors
+  parallel/   the network trainer: synthetic pairs rendered on the device,
+              the sensor model, procedural objects, refiner and scorer steps
+  io/         PNG decoding, mesh IO (textured OBJ too), the demo-scene reader
   estimater.py  FoundationPose: register (frame 0) and track_one (later frames)
   app/        the run loop (register -> ICP refine -> defect ray trace, then
               tracking with capture events), the ICP pipeline, defect

@@ -1,8 +1,10 @@
 """Triangle-mesh and point-cloud containers + OBJ/PLY loading.
 
 Port of `sixdof_tpu/io/mesh_io.py` (the loaders and containers the pose and
-capture paths use, and the point-cloud PLY writer), numpy only.  Vertex-coloured meshes only: an OBJ whose material names
-a texture raises NotImplementedError until textured meshes are ported.
+capture paths use, and the OBJ and PLY writers), numpy only.  A textured
+OBJ's `map_Kd` image is read and written as PNG through `io/png.py`; a
+texture in any other format raises, since dropping it would change the
+rendered colours.
 """
 from __future__ import annotations
 
@@ -66,11 +68,13 @@ class PointCloud:
 
 @dataclass
 class TriMesh:
-    """Minimal trimesh stand-in: vertices/faces + optional vertex colours."""
+    """Minimal trimesh stand-in: vertices/faces + optional colours/uv/texture."""
 
     vertices: np.ndarray  # (V,3) float64
     faces: np.ndarray  # (F,3) int64
     vertex_colors: Optional[np.ndarray] = None  # (V,3) uint8-scale [0,255]
+    uv: Optional[np.ndarray] = None  # (V,2)
+    texture: Optional[np.ndarray] = None  # (H,W,3) uint8 RGB
     _vertex_normals: Optional[np.ndarray] = field(default=None, repr=False)
 
     def __post_init__(self):
@@ -82,6 +86,8 @@ class TriMesh:
             self.vertices.copy(),
             self.faces.copy(),
             None if self.vertex_colors is None else self.vertex_colors.copy(),
+            None if self.uv is None else self.uv.copy(),
+            None if self.texture is None else self.texture.copy(),
         )
         return m
 
@@ -139,6 +145,10 @@ class TriMesh:
         fn = self.face_normals[fid]
         return PointCloud(pts, normals=fn)
 
+    def export(self, path):
+        save_mesh(path, self)
+        return path
+
     def is_watertight(self):
         """True iff every undirected edge is shared by exactly two faces with
         opposite orientation (closed, consistently wound 2-manifold).  Gates
@@ -172,11 +182,32 @@ class TriMesh:
 # --------------------------------------------------------------------- OBJ --
 
 
+def _read_texture(path):
+    """A `map_Kd` image as (H,W,3) uint8 RGB.  Only PNG decodes here (grey
+    and RGBA convert to RGB, as PIL's ``convert("RGB")`` does); any other
+    format raises rather than rendering the mesh without its texture."""
+    from .png import read_png
+
+    with open(path, "rb") as f:
+        head = f.read(8)
+    if head != b"\x89PNG\r\n\x1a\n":
+        kind = "JPEG" if head[:3] == b"\xff\xd8\xff" else f"{os.path.splitext(path)[1]!r}"
+        raise ValueError(f"{path}: the texture is a {kind} image; only PNG textures "
+                         "are read (convert it to PNG)")
+    img = read_png(path)
+    if img.dtype != np.uint8:
+        raise ValueError(f"{path}: a 16-bit texture; only 8-bit PNG textures are read")
+    if img.ndim == 2:
+        return np.repeat(img[..., None], 3, axis=-1)
+    return np.ascontiguousarray(img[..., 2::-1])  # BGR(A) -> RGB
+
+
 def load_obj(path):
-    """Parse a Wavefront OBJ (v / v-with-colour / f; normals and UVs are not
-    read).  A material that names a texture raises NotImplementedError."""
-    verts, colors = [], []
-    faces = []
+    """Parse a Wavefront OBJ (v / v-with-colour / vn / vt / f, and the
+    texture a `mtllib` material names with `map_Kd`)."""
+    verts, colors, uvs = [], [], []
+    faces, face_uvs = [], []
+    mtl_tex = None
     base = os.path.dirname(path)
     with open(path, "r") as f:
         for line in f:
@@ -189,25 +220,77 @@ def load_obj(path):
                 verts.append(vals[:3])
                 if len(vals) >= 6:
                     colors.append(vals[3:6])
+            elif tag == "vt":
+                uvs.append([float(x) for x in parts[1:3]])
             elif tag == "f":
-                idx = [int(p.split("/")[0]) - 1 for p in parts[1:]]
+                idx, uv_idx = [], []
+                for p in parts[1:]:
+                    comps = p.split("/")
+                    idx.append(int(comps[0]) - 1)
+                    if len(comps) > 1 and comps[1]:
+                        uv_idx.append(int(comps[1]) - 1)
                 for k in range(1, len(idx) - 1):  # fan triangulation
                     faces.append([idx[0], idx[k], idx[k + 1]])
+                    if uv_idx:
+                        face_uvs.append([uv_idx[0], uv_idx[k], uv_idx[k + 1]])
             elif tag == "mtllib":
                 mtl_path = os.path.join(base, parts[1])
                 if os.path.exists(mtl_path):
                     with open(mtl_path) as mf:
                         for ml in mf:
                             mp = ml.split()
-                            if mp[:1] == ["map_Kd"] and os.path.exists(os.path.join(base, mp[1])):
-                                raise NotImplementedError(
-                                    f"{path}: textured meshes are not supported by the port yet")
+                            if mp and mp[0] == "map_Kd":
+                                tex_path = os.path.join(base, mp[1])
+                                if os.path.exists(tex_path):
+                                    mtl_tex = _read_texture(tex_path)
     verts = np.array(verts, dtype=np.float64)
     faces = np.array(faces, dtype=np.int64) if faces else np.zeros((0, 3), np.int64)
     vc = None
     if colors:
         vc = (np.array(colors) * 255.0).clip(0, 255)
-    return TriMesh(verts, faces, vertex_colors=vc)
+    uv = None
+    if uvs and face_uvs:
+        # one uv per vertex: the last face corner that names the vertex wins,
+        # as numpy's fancy assignment in the JAX loader resolves it
+        uv = np.zeros((len(verts), 2))
+        uv[faces.reshape(-1)] = np.array(uvs)[np.array(face_uvs).reshape(-1)]
+    return TriMesh(verts, faces, vertex_colors=vc, uv=uv, texture=mtl_tex)
+
+
+def save_obj(path, mesh: TriMesh):
+    """Write @mesh as OBJ; a textured mesh also gets `<name>.mtl` and the
+    texture as `<name>_tex.png` (RGB) beside it."""
+    textured = mesh.uv is not None and mesh.texture is not None
+    with open(path, "w") as f:
+        if textured:
+            from .png import write_png_rgb8
+
+            base = os.path.splitext(path)[0]
+            name = os.path.basename(base)
+            tex_name = f"{name}_tex.png"
+            write_png_rgb8(os.path.join(os.path.dirname(path) or ".", tex_name),
+                           np.asarray(mesh.texture, dtype=np.uint8))
+            with open(f"{base}.mtl", "w") as mf:
+                mf.write(f"newmtl material_0\nmap_Kd {tex_name}\n")
+            f.write(f"mtllib {name}.mtl\nusemtl material_0\n")
+        if mesh.vertex_colors is not None:
+            vc = np.asarray(mesh.vertex_colors, dtype=np.float64)
+            if vc.max() > 1:
+                vc = vc / 255.0
+            for v, c in zip(mesh.vertices, vc):
+                f.write(f"v {v[0]} {v[1]} {v[2]} {c[0]} {c[1]} {c[2]}\n")
+        else:
+            for v in mesh.vertices:
+                f.write(f"v {v[0]} {v[1]} {v[2]}\n")
+        if textured:
+            for uv in mesh.uv:
+                f.write(f"vt {uv[0]} {uv[1]}\n")
+            for face in mesh.faces:
+                f.write(f"f {face[0]+1}/{face[0]+1} {face[1]+1}/{face[1]+1} "
+                        f"{face[2]+1}/{face[2]+1}\n")
+        else:
+            for face in mesh.faces:
+                f.write(f"f {face[0]+1} {face[1]+1} {face[2]+1}\n")
 
 
 # --------------------------------------------------------------------- PLY --
@@ -328,27 +411,54 @@ def load_point_cloud(path) -> PointCloud:
     raise ValueError(f"unsupported point-cloud format: {ext}")
 
 
-def save_point_cloud(path, pcd: PointCloud):
-    """Write a PointCloud as binary little-endian PLY: x y z float, then
-    normals and uchar colours where present (colours in [0,1] are scaled to
-    0-255), as the JAX package's save_ply writes it."""
+def save_ply(path, obj):
+    """Write a PointCloud or a TriMesh as binary little-endian PLY: x y z
+    float, then a cloud's normals and the colours as uchar (colours in [0,1]
+    scaled to 0-255), and a mesh's faces as `list uchar int`, as the JAX
+    package's save_ply writes them."""
+    is_mesh = isinstance(obj, TriMesh)
+    pts = obj.vertices if is_mesh else obj.points
+    colors = obj.vertex_colors if is_mesh else obj.colors
+    normals = None if is_mesh else obj.normals
     props = [("x", "f4"), ("y", "f4"), ("z", "f4")]
-    if pcd.normals is not None:
+    if normals is not None:
         props += [("nx", "f4"), ("ny", "f4"), ("nz", "f4")]
-    if pcd.colors is not None:
+    if colors is not None:
         props += [("red", "u1"), ("green", "u1"), ("blue", "u1")]
     names = {"f4": "float", "u1": "uchar"}
-    header = ["ply", "format binary_little_endian 1.0", f"element vertex {len(pcd.points)}"]
-    header += [f"property {names[dt]} {p}" for p, dt in props] + ["end_header"]
-    rec = np.zeros(len(pcd.points), dtype=[(p, "<" + dt) for p, dt in props])
-    rec["x"], rec["y"], rec["z"] = pcd.points.T
-    if pcd.normals is not None:
-        rec["nx"], rec["ny"], rec["nz"] = pcd.normals.T
-    if pcd.colors is not None:
-        c = np.asarray(pcd.colors, dtype=np.float64)
+    header = ["ply", "format binary_little_endian 1.0", f"element vertex {len(pts)}"]
+    header += [f"property {names[dt]} {p}" for p, dt in props]
+    if is_mesh:
+        header += [f"element face {len(obj.faces)}", "property list uchar int vertex_indices"]
+    header.append("end_header")
+    rec = np.zeros(len(pts), dtype=[(p, "<" + dt) for p, dt in props])
+    rec["x"], rec["y"], rec["z"] = np.asarray(pts).T
+    if normals is not None:
+        rec["nx"], rec["ny"], rec["nz"] = normals.T
+    if colors is not None:
+        c = np.asarray(colors, dtype=np.float64)
         if c.size and c.max() <= 1.0 + 1e-9:
             c = c * 255.0
         rec["red"], rec["green"], rec["blue"] = np.clip(c, 0, 255).astype(np.uint8).T
     with open(path, "wb") as f:
         f.write(("\n".join(header) + "\n").encode("ascii"))
         f.write(rec.tobytes())
+        if is_mesh:
+            tri = np.zeros(len(obj.faces), dtype=[("n", "u1"), ("v", "<i4", (3,))])
+            tri["n"] = 3
+            tri["v"] = np.asarray(obj.faces)
+            f.write(tri.tobytes())
+
+
+def save_mesh(path, mesh: TriMesh):
+    ext = os.path.splitext(path)[1].lower()
+    if ext == ".obj":
+        save_obj(path, mesh)
+    elif ext == ".ply":
+        save_ply(path, mesh)
+    else:
+        raise ValueError(f"unsupported mesh format: {ext}")
+
+
+def save_point_cloud(path, pcd: PointCloud):
+    save_ply(path, pcd)

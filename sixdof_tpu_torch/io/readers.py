@@ -168,6 +168,53 @@ def resize_linear(img, width, height):
     return rows[y0] * b0[:, None] + rows[y1] * b1[:, None]
 
 
+def _linear_u8_taps(dst, scale):
+    """OpenCV's INTER_LINEAR taps for one axis: f = float32((d + 0.5) *
+    scale - 0.5), s = floor(f), frac = f - s in float32."""
+    f = ((np.arange(dst) + 0.5) * scale - 0.5).astype(np.float32)
+    s = np.floor(f)
+    frac = (f - s).astype(np.float32)
+    return s.astype(np.int64), frac
+
+
+def resize_linear_u8(img, factor):
+    """``cv2.resize(img, None, fx=factor, fy=factor)`` (INTER_LINEAR) of a
+    uint8 (H,W) or (H,W,C) image, as OpenCV computes it: the size rounds
+    to nearest, the sampling scale is 1 / factor (not the size ratio); an
+    exact halving is OpenCV's 2x2 block average; otherwise 11-bit fixed
+    point weights rint(frac * 2048) on s + 1 and rint((1 - frac) * 2048) on
+    s.  A column tap outside the source moves to the border with the whole
+    weight; a row tap outside keeps its weights and reads the border row.
+    The vertical pass is computed as OpenCV's vector code does (a 16-bit
+    multiply-high of the 4-bit-shifted rows, then a rounding shift by 2)."""
+    if img.dtype != np.uint8:
+        raise ValueError(f"resize_linear_u8 takes uint8 images, got {img.dtype}")
+    H, W = img.shape[:2]
+    width, height = int(round(W * factor)), int(round(H * factor))
+    if (width, height) == (W, H) and factor == 1:
+        return img.copy()
+    scale = 1.0 / factor
+    if scale == 2.0 and 2 * width == W and 2 * height == H:
+        return resize_area(img, width, height)
+    ex = (1,) * (img.ndim - 2)
+
+    def taps(dst, src, columns):
+        s, frac = _linear_u8_taps(dst, scale)
+        if columns:
+            frac = np.where((s < 0) | (s >= src - 1), np.float32(0), frac).astype(np.float32)
+        w1 = np.rint(frac * np.float32(2048)).astype(np.int64)
+        w0 = np.rint((np.float32(1) - frac) * np.float32(2048)).astype(np.int64)
+        return np.clip(s, 0, src - 1), np.clip(s + 1, 0, src - 1), w0, w1
+
+    x0, x1, a0, a1 = taps(width, W, True)
+    y0, y1, b0, b1 = taps(height, H, False)
+    src = img.astype(np.int64)
+    rows = src[:, x0] * a0.reshape((1, width) + ex) + src[:, x1] * a1.reshape((1, width) + ex)
+    m0 = ((rows[y0] >> 4) * b0.reshape((height, 1) + ex)) >> 16
+    m1 = ((rows[y1] >> 4) * b1.reshape((height, 1) + ex)) >> 16
+    return np.clip((m0 + m1 + 2) >> 2, 0, 255).astype(np.uint8)
+
+
 def bgr_to_gray(img):
     """``cv2.cvtColor(img, cv2.COLOR_BGR2GRAY)`` of a uint8 (H,W,3) image:
     OpenCV's 15-bit fixed-point weights (gray_shift), rounded."""

@@ -5,8 +5,10 @@ and of the predictors' `OCC_SUB` handling.  Two formats load:
 
 - the numpy export of the bundled checkpoints (`weights_torch/<net>.npz`
   with `weights_torch/MANIFEST.json`, written by
-  `tools/export_torch_weights.py`): state-dict keys of the port's networks;
-  `uint16` arrays hold bf16 bit patterns, which widen to float32 exactly;
+  `tools/export_torch_weights.py`), or the same format as the port's
+  trainer writes it (`parallel/train.py::save_params`, every array
+  float32): state-dict keys of the port's networks; `uint16` arrays hold
+  bf16 bit patterns, which widen to float32 exactly;
 - a reference PyTorch checkpoint (`.pth`, possibly under a "model" key),
   whose module names are the port's.
 
@@ -62,6 +64,16 @@ def cfg_overrides(path, net):
     return dict(_manifest(path, net)[net].get("cfg", {}))
 
 
+def stored_dtype(path, net):
+    """"bfloat16" where the export at @path rounded @net's weights for bf16
+    compute, "float32" where they are the trained values; None for `.pth`.
+    The trainer records each net's dtype; the export, one for the file."""
+    if not path.endswith(".npz"):
+        return None
+    manifest = _manifest(path, net)
+    return manifest[net].get("compute_dtype", manifest.get("compute_dtype"))
+
+
 def load_params(ckpt, net, compute_dtype=torch.bfloat16):
     """State dict (float32 tensors) of network @net from @ckpt, or None
     where @ckpt names nothing that exists (the caller then initialises from
@@ -78,7 +90,7 @@ def load_params(ckpt, net, compute_dtype=torch.bfloat16):
             sd = sd["model"]
         return {k: v.float() for k, v in sd.items()}
     manifest = _manifest(path, net)
-    if manifest.get("compute_dtype") == "bfloat16" and compute_dtype != torch.bfloat16:
+    if stored_dtype(path, net) == "bfloat16" and compute_dtype != torch.bfloat16:
         raise ValueError(f"{path} stores bf16-rounded weights for bf16 compute; a "
                          f"{compute_dtype} predictor needs the fp32 checkpoint")
     logging.info(f"Loading exported checkpoint {path}")

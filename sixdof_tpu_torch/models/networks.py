@@ -12,6 +12,11 @@ then sinusoidal position embedding over the H/8 x W/8 tokens and the
 attention heads.  Inputs and the public layout are NHWC, as in the JAX
 package; convolutions run NCHW inside.
 
+`init_flax_style` draws fresh parameters as the JAX modules initialise
+them for training from scratch (he-normal convolutions, lecun-normal
+linears, both truncated; zero biases; unit LayerNorm scales; zero output
+heads).
+
 Numerics follow the JAX modules: attention is matmul + fp32 softmax, the
 LayerNorms use epsilon 1e-6 (flax's default) and compute in fp32, and the
 output heads (trans/rot/score linears) run in fp32 outside autocast.  Under
@@ -176,3 +181,46 @@ class ScoreNetMultiPair(nn.Module):
         x = feats.reshape(A.shape[0] // L, L, -1)
         x = self.att_cross(x)
         return {"score_logit": self.linear(x)[..., 0]}
+
+
+# flax's truncated-normal variance scaling draws from N(0, 1) cut at +-2 and
+# divides the standard deviation by that distribution's own (0.8796...),
+# so the kept values have the requested variance
+_TRUNC_STD = 0.87962566103423978
+# the output heads flax initialises to zero (RefineNet's trans_linear and
+# rot_linear, ScoreNet's linear): random heads start tanh-saturated
+ZERO_HEADS = ("trans_head.1.", "rot_head.1.", "linear.")
+
+
+def _truncated_normal_(p, std, generator):
+    """@p <- std / _TRUNC_STD * x, x ~ N(0, 1) truncated to [-2, 2] (the
+    bounds are in units of the unscaled x, as flax draws them).  Values
+    outside are redrawn (about 4.6% a round): the same truncated
+    distribution as torch's inverse-CDF `trunc_normal_`, several times
+    faster on the CPU."""
+    x = torch.empty(p.numel(), dtype=torch.float32).normal_(generator=generator)
+    redraw = (x.abs() > 2.0).nonzero().squeeze(1)
+    while redraw.numel():
+        y = torch.empty(redraw.numel()).normal_(generator=generator)
+        x[redraw] = y
+        redraw = redraw[y.abs() > 2.0]
+    p.copy_(x.view(p.shape) * (std / _TRUNC_STD))
+
+
+@torch.no_grad()
+def init_flax_style(model: nn.Module, generator: torch.Generator):
+    """Initialise @model (RefineNet or ScoreNetMultiPair) as its JAX module
+    initialises for training: convolutions he_normal (variance 2 / fan_in,
+    truncated), every other linear lecun_normal (1 / fan_in, truncated;
+    the packed QKV projection draws its (3D, D) weight as one dense kernel
+    of fan_in D), biases zero, LayerNorm scales one, output heads zero.
+    Draws on the CPU from @generator, then copies to the model's device."""
+    for name, p in model.named_parameters():
+        if p.ndim == 1:
+            p.fill_(1.0 if name.endswith(("norm1.weight", "norm2.weight")) else 0.0)
+        elif name.startswith(ZERO_HEADS):
+            p.zero_()
+        else:
+            fan_in = p[0].numel()  # OIHW / (out, in): every dim but the first
+            _truncated_normal_(p, math.sqrt((2.0 if p.ndim == 4 else 1.0) / fan_in), generator)
+    return model

@@ -74,6 +74,19 @@ def to_rgb01(rgb, device):
     return out
 
 
+def occlusion_mask(zA, zB, occ_sub, valid_z):
+    """The visibility substitution's (N,H,W,1) mask: pixels where B is >1 cm
+    nearer than A (both deeper than @valid_z), in samples whose occluded
+    share lies in (0.02, ceiling); ceiling 0.6 for @occ_sub True, else
+    float(@occ_sub).  B takes A there, so occluders carry no residual."""
+    hi = 0.6 if occ_sub is True else float(occ_sub)
+    both = (zA > valid_z) & (zB > valid_z)
+    occ = both & (zB < zA - 0.01)
+    frac = occ.sum(dim=(1, 2)) / torch.clamp(both.sum(dim=(1, 2)), min=1)
+    gate = (frac > 0.02) & (frac < hi)
+    return (occ & gate[:, None, None])[..., None]
+
+
 def _make_AB(mesh, poses, rgb01, xyz_map, K, crop_ratio, mesh_diameter, out_hw,
              normalize_xyz, invalid_z_thresh, backface_cull=False, occ_sub=False,
              plain_raster=False):
@@ -96,14 +109,7 @@ def _make_AB(mesh, poses, rgb01, xyz_map, K, crop_ratio, mesh_diameter, out_hw,
     rend["xyzB_m"] = xyzB - center
     sub = None
     if occ_sub:
-        hi = 0.6 if occ_sub is True else float(occ_sub)
-        validA = xyzA[..., 2] > invalid_z_thresh
-        validB = xyzB[..., 2] > invalid_z_thresh
-        both = validA & validB
-        occ = both & (xyzB[..., 2] < xyzA[..., 2] - 0.01)
-        frac = occ.sum(dim=(1, 2)) / torch.clamp(both.sum(dim=(1, 2)), min=1)
-        gate = (frac > 0.02) & (frac < hi)
-        sub = (occ & gate[:, None, None])[..., None]
+        sub = occlusion_mask(xyzA[..., 2], xyzB[..., 2], occ_sub, invalid_z_thresh)
     if normalize_xyz:
         r = mesh_diameter / 2.0
         invalidA = xyzA[..., 2:3] < invalid_z_thresh

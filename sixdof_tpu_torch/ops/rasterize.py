@@ -2,8 +2,9 @@
 
 Port of `sixdof_tpu/ops/rasterize.py`: renders B pose hypotheses of one mesh
 straight into their crop windows with z-buffering, perspective-correct
-attribute planes, Lambertian shading (w_ambient=0.8, w_diffuse=0.5, light
-+z) and z-buffer backprojection for xyz.  Pixels sample at integer
+attribute planes (vertex colours, or UVs and a bilinear texture lookup),
+Lambertian shading (w_ambient=0.8, w_diffuse=0.5, light +z, or unlit) and
+z-buffer backprojection for xyz.  Pixels sample at integer
 coordinates (u = column at the pixel centre), as ops/warp.py does.
 
 The z-buffer core is kernel K1 (`kernels/raster.py`).  Triangles that fail
@@ -18,7 +19,7 @@ No gradients are needed (the reference renders under inference_mode).
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -37,24 +38,62 @@ class MeshArrays(NamedTuple):
     pos: torch.Tensor  # (V,3) f32 object-frame vertices
     faces: torch.Tensor  # (T,3) int64
     vnormals: torch.Tensor  # (V,3) f32 unit vertex normals
-    vertex_color: torch.Tensor  # (V,3) f32 in [0,1]
+    vertex_color: Optional[torch.Tensor]  # (V,3) f32 in [0,1], or None when textured
+    uv: Optional[torch.Tensor] = None  # (V,2) f32, V flipped (1 - v)
+    tex: Optional[torch.Tensor] = None  # (Ht,Wt,3) f32 in [0,1]
 
 
-def make_mesh_arrays(mesh, device) -> MeshArrays:
-    """TriMesh -> MeshArrays; meshes without colours get uniform grey 128/255."""
-    vc = mesh.vertex_colors
-    if vc is None:
-        vc = np.tile(np.array([[128.0, 128.0, 128.0]]), (len(mesh.vertices), 1))
-    vc = np.asarray(vc, dtype=np.float32)
-    if vc.max() > 1.0:
-        vc = vc / 255.0
+def make_mesh_arrays(mesh, device, max_tex_size=None) -> MeshArrays:
+    """TriMesh -> MeshArrays (reference Utils.py:104-130 make_mesh_tensors).
+
+    A mesh with uv and a texture renders textured: the texture V coordinate
+    is flipped (uv[:,1] = 1 - v) as the reference does, and a texture whose
+    larger side exceeds @max_tex_size is shrunk by that factor first
+    (OpenCV's INTER_LINEAR on uint8, `io/readers.py::resize_linear_u8`).
+    Otherwise vertex colours; meshes without colours get uniform grey
+    128/255."""
     f32 = dict(dtype=torch.float32, device=device)
+    vertex_color = uv = tex = None
+    if mesh.texture is not None and mesh.uv is not None:
+        img = np.asarray(mesh.texture)
+        if max_tex_size is not None and max(img.shape[:2]) > max_tex_size:
+            from ..io.readers import resize_linear_u8
+
+            img = resize_linear_u8(img, max_tex_size / max(img.shape[:2]))
+        tex = torch.as_tensor(img, **f32) / 255.0
+        uv_np = np.array(mesh.uv, dtype=np.float32)
+        uv_np[:, 1] = 1.0 - uv_np[:, 1]
+        uv = torch.as_tensor(uv_np, **f32)
+    else:
+        vc = mesh.vertex_colors
+        if vc is None:
+            vc = np.tile(np.array([[128.0, 128.0, 128.0]]), (len(mesh.vertices), 1))
+        vc = np.asarray(vc, dtype=np.float32)
+        if vc.max() > 1.0:
+            vc = vc / 255.0
+        vertex_color = torch.as_tensor(vc, **f32)
     return MeshArrays(
         pos=torch.as_tensor(np.asarray(mesh.vertices), **f32),
         faces=torch.as_tensor(np.asarray(mesh.faces), dtype=torch.int64, device=device),
         vnormals=torch.as_tensor(np.asarray(mesh.vertex_normals), **f32),
-        vertex_color=torch.as_tensor(vc, **f32),
+        vertex_color=vertex_color, uv=uv, tex=tex,
     )
+
+
+def _sample_texture(tex, uv):
+    """Bilinear texture sample; @uv: (...,2) in [0,1]; @tex: (Ht,Wt,3).
+    Returns (...,3)."""
+    Ht, Wt = tex.shape[:2]
+    x = torch.clamp(uv[..., 0], 0.0, 1.0) * (Wt - 1)
+    y = torch.clamp(uv[..., 1], 0.0, 1.0) * (Ht - 1)
+    x0 = torch.floor(x).long()
+    y0 = torch.floor(y).long()
+    x1 = torch.clamp(x0 + 1, max=Wt - 1)
+    y1 = torch.clamp(y0 + 1, max=Ht - 1)
+    fx = (x - x0)[..., None]
+    fy = (y - y0)[..., None]
+    return (tex[y0, x0] * (1 - fx) * (1 - fy) + tex[y0, x1] * fx * (1 - fy)
+            + tex[y1, x0] * (1 - fx) * fy + tex[y1, x1] * fx * fy)
 
 
 def _tri_setup(uv_crop, z_cam, faces):
@@ -126,11 +165,15 @@ def zbuffer_setup(mesh: MeshArrays, poses, K, crop_tfs, backface_cull=False):
 
 @torch.no_grad()
 def render_batch(mesh: MeshArrays, poses, K, crop_tfs=None, out_hw=(160, 160), get_normal=False,
+                 use_light=True, w_ambient=W_AMBIENT, w_diffuse=W_DIFFUSE, light_dir=LIGHT_DIR,
                  backface_cull=False, plain_raster=False):
     """Render B hypotheses into their crop windows.
 
     @poses: (B,4,4) object-in-camera (OpenCV convention); @K: (3,3);
     @crop_tfs: (B,3,3) full-image -> crop pixel transform, or None.
+    @use_light: Lambertian shading, colour * (w_ambient + w_diffuse *
+    clip(n . -light_dir)), the diffuse term interpolated per vertex; else
+    the bare vertex or texture colour.
     @plain_raster: run the z-buffer through its plain PyTorch version even on
     the card (the comparison run of chip_smoke.py); by default a CUDA tensor
     goes through kernel K1.
@@ -145,17 +188,22 @@ def render_batch(mesh: MeshArrays, poses, K, crop_tfs=None, out_hw=(160, 160), g
     if crop_tfs is None:
         crop_tfs = torch.eye(3, dtype=torch.float32, device=dev).repeat(B, 1, 1)
     crop_tfs = crop_tfs.float()
-    light = torch.tensor(LIGHT_DIR, dtype=torch.float32, device=dev)
-    light = light / torch.linalg.norm(light)
     setup = zbuffer_setup(mesh, poses, K, crop_tfs, backface_cull)
     order = setup["order"]
 
-    # per-pose shading channels -> attribute plane table
+    # per-pose shading channels -> attribute plane table: uv (textured) or
+    # colour, then the diffuse term, then normals
     n_cam_v = torch.matmul(mesh.vnormals, poses[:, :3, :3].transpose(1, 2))  # (B,V,3)
-    # per-vertex diffuse term, interpolated like the colours
-    nv = n_cam_v / torch.clamp(torch.linalg.norm(n_cam_v, dim=-1, keepdim=True), min=1e-12)
-    chans = [mesh.vertex_color[None].expand(B, -1, -1),
-             torch.clamp((nv * (-light)).sum(dim=-1), 0.0, 1.0)[..., None]]
+    textured = mesh.tex is not None
+    base = mesh.uv if textured else mesh.vertex_color
+    n_base = base.shape[-1]
+    chans = [base[None].expand(B, -1, -1)]
+    if use_light:
+        light = torch.tensor(light_dir, dtype=torch.float32, device=dev)
+        light = light / torch.linalg.norm(light)
+        # per-vertex diffuse term, interpolated like the colours
+        nv = n_cam_v / torch.clamp(torch.linalg.norm(n_cam_v, dim=-1, keepdim=True), min=1e-12)
+        chans.append(torch.clamp((nv * (-light)).sum(dim=-1), 0.0, 1.0)[..., None])
     if get_normal:
         chans.append(n_cam_v)
     table = _attr_plane_table(torch.cat(chans, dim=-1), mesh.faces, setup["z"], setup["coef"])
@@ -176,8 +224,12 @@ def render_batch(mesh: MeshArrays, poses, K, crop_tfs=None, out_hw=(160, 160), g
     attr = (g[..., :D] * px[:, None] + g[..., D:2 * D] * py[:, None] + g[..., 2 * D:]) \
         * zflat[..., None]
     alpha = hit.float()
-    color, diffuse = attr[..., :3], attr[..., 3:4]
-    color = color * W_AMBIENT + diffuse * color * W_DIFFUSE
+    color = _sample_texture(mesh.tex, attr[..., :2]) if textured else attr[..., :3]
+    o = n_base
+    if use_light:
+        diffuse = attr[..., o:o + 1]
+        o += 1
+        color = color * w_ambient + diffuse * color * w_diffuse
     color = torch.clamp(color, 0.0, 1.0) * alpha[..., None]
 
     # xyz by backprojection: xyz = z * (crop_tf @ K)^-1 (px,py,1)
@@ -193,7 +245,7 @@ def render_batch(mesh: MeshArrays, poses, K, crop_tfs=None, out_hw=(160, 160), g
         "alpha": alpha.reshape(B, H, W),
     }
     if get_normal:
-        normal = attr[..., 4:7]
+        normal = attr[..., o:o + 3]
         normal = normal / torch.clamp(torch.linalg.norm(normal, dim=-1, keepdim=True), min=1e-12)
         out["normal"] = normal.reshape(B, H, W, 3)
     return out

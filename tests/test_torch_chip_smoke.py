@@ -1,9 +1,9 @@
 """chip_smoke.py rehearsed on the CPU at a tiny size: every phase runs (K1
 and K2 through their plain versions, the pose server twice on the bundled
 weights, the accuracy phase, the capture path and the run loop twice, the
-loop at --debug 2 and in viewer mode, the point-click path on a crust and
-the --icp registration) and the kernels line has the keys the card run
-reports; a phase that fails stops the script before its result."""
+loop at --debug 2 and in viewer mode, the point-click path on a crust, the
+--icp registration and the trainer) and the kernels line has the keys the
+card run reports; a phase that fails stops the script before its result."""
 import json
 import os
 import sys
@@ -31,7 +31,7 @@ def test_chip_smoke_rehearsal_on_cpu(capsys):
     assert phases.count("k2") == 4 and "capture" in phases
     assert phases.index("pose") < phases.index("accuracy") < phases.index("capture") \
         < phases.index("debug") < phases.index("viewer") < phases.index("point_click") \
-        < phases.index("icp_global")
+        < phases.index("icp_global") < phases.index("train_k1") < phases.index("train")
     assert lines[-1] == {"kernels": kernels}
     assert [k["name"] for k in kernels] == ["raster_zbuffer", "ray_mesh_intersect"]
     for k in kernels:
@@ -98,6 +98,26 @@ def test_chip_smoke_rehearsal_on_cpu(capsys):
     assert icp["icp"]["valid_trials"] == [0] * 10 and icp["icp"]["fitness"] == 0.0
     assert icp["from_annotated"]["fitness"] >= 0.9
     assert {"fpfh", "ransac", "icp", "total"} <= set(icp["icp"]["seconds"])
+    # the trainer: K1 at its two shapes (no culling), its batches through K1
+    # and the plain raster alike (both plain here), a textured box written,
+    # read back and rendered, training steps, the checkpoint round trip
+    tk1 = [x for x in lines if x.get("phase") == "train_k1"]
+    assert [(x["shape"], x["B"]) for x in tk1] == [("train_refiner", 2), ("train_scorer", 8)]
+    assert all(x["tid_mismatch"] == 0 and x["max_abs_depth_err"] == 0.0 for x in tk1)
+    batches, training = (next(x for x in lines if x.get("part") == p)
+                         for p in ("batches", "training"))
+    assert all(batches["batches_bit_equal"].values()) and len(batches["batches_bit_equal"]) == 4
+    assert batches["textured"]["uv_texture_equal"] and batches["textured"]["render_bit_equal"]
+    assert set(batches["overfit"]) == {"jax_test_setting", "trainer_setting"}
+    assert batches["overfit"]["jax_test_setting"]["batch"] == 8
+    steps = training["steps"]
+    assert steps["refiner"]["steps"] == steps["scorer"]["steps"] == 3
+    assert all(0 < steps[n]["batch_share"] < 1 for n in steps)
+    assert all(steps[n][k]["calls"] == 2 and steps[n][k]["launches"] is None
+               for n in steps for k in ("step_profile", "batch_profile"))
+    assert training["k1_launches"] == 0  # the CPU renders through the plain raster
+    assert training["checkpoint"] == {"outputs_bit_equal": True, "register_pose_finite": True}
+    assert set(training["first_loss"]["refiner"]) == {"bundled", "from_scratch"}
 
 
 def test_a_failing_phase_stops_the_script(monkeypatch, capsys):
@@ -133,3 +153,25 @@ def test_point_click_phase_fails_on_a_kernel_disagreement(monkeypatch):
     scene = os.path.join(REPO, "demo_data", "synth_box")
     with pytest.raises(RuntimeError, match="disagrees"):
         chip_smoke.phase_point_click(torch.device("cpu"), scene, small=True, n_time=1)
+
+
+def test_train_phase_fails_on_a_kernel_disagreement(monkeypatch):
+    """phase train holds the trainer's batches through K1 (here a stand-in
+    one ulp off in depth) to the same draws through the plain raster."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+
+    from sixdof_tpu_torch.config import PipelineConfig
+    from sixdof_tpu_torch.kernels import raster
+    from sixdof_tpu_torch.ops import rasterize
+
+    def off_by_one_ulp(coef, counts, H, W):
+        z, t = raster.rasterize_zbuffer_plain(coef, counts, H, W)
+        return torch.nextafter(z, torch.full_like(z, float("inf"))), t
+
+    monkeypatch.setattr(rasterize, "rasterize_zbuffer", off_by_one_ulp)
+    cfg = PipelineConfig(shorter_side=120, input_resize=(32, 32), prune_to=4,
+                         coarse_hw=(16, 16))
+    with pytest.raises(RuntimeError, match="trainer batches through K1 disagree"):
+        chip_smoke.phase_train(torch.device("cpu"), cfg,
+                               os.path.join(REPO, "demo_data", "synth_box"), small=True)

@@ -21,6 +21,8 @@ for m in pkgutil.walk_packages(sixdof_tpu_torch.__path__, "sixdof_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
 import run_torch
+sys.path.insert(0, "tools")
+import train_torch_networks
 bad = [n for n in sys.modules if n.split(".")[0] in {FORBIDDEN!r}]
 print("BAD", bad)
 print("N", sum(n.startswith("sixdof_tpu_torch") for n in sys.modules))
@@ -29,6 +31,9 @@ print("SLICE", all(m in sys.modules for m in ("sixdof_tpu_torch.app.web_vis",
                                               "sixdof_tpu_torch.ops.features",
                                               "sixdof_tpu_torch.ops.marching",
                                               "sixdof_tpu_torch.utils.vis")))
+print("TRAINER", all(m in sys.modules for m in ("sixdof_tpu_torch.parallel.train",
+                                                "sixdof_tpu_torch.parallel.augment",
+                                                "sixdof_tpu_torch.parallel.procgen")))
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
@@ -39,6 +44,7 @@ print("SLICE", all(m in sys.modules for m in ("sixdof_tpu_torch.app.web_vis",
     assert n >= 35  # every submodule was imported
     assert "CKPT True" in out.stdout  # the checkpoint loader among them
     assert "SLICE True" in out.stdout  # and the viewer, features, marching, drawings
+    assert "TRAINER True" in out.stdout  # and the trainer, with the training tool
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):

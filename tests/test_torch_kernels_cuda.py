@@ -57,6 +57,59 @@ def test_raster_kernel_matches_plain(card, B, hw, cull):
 
 
 @pytest.mark.cuda
+def test_raster_kernel_on_a_textured_mesh_at_the_scorer_shape(card):
+    """K1 at the scorer trainer's shape (B=48, 160x160, no culling) on the
+    box with seeded uv and a seeded 256x256 texture: every render output
+    equal to the plain raster's."""
+    from sixdof_tpu_torch.io.mesh_io import TriMesh
+    from sixdof_tpu_torch.parallel import train as tr
+
+    mesh = load_mesh(MESH)
+    v = mesh.vertices - (mesh.vertices.max(0) + mesh.vertices.min(0)) / 2
+    rng = np.random.RandomState(9)
+    arrays = make_mesh_arrays(TriMesh(v, mesh.faces, uv=rng.rand(len(v), 2),
+                                      texture=rng.randint(0, 256, (256, 256, 3)).astype(np.uint8)),
+                              card)
+    cfg = tr.TrainConfig(n_hypotheses=12)
+    _, hyp = tr.scorer_hypotheses(tr.scorer_draws(torch.Generator(card).manual_seed(0), cfg),
+                                  0.1, 12)
+    K = torch.tensor(K_IMG, device=card)
+    tfs = compute_crop_window_tf_batch(hyp, K, 1.2, (160, 160), 0.1)
+    before = k1.rasterize_zbuffer.launches
+    rk = render_batch(arrays, hyp, K, tfs, out_hw=(160, 160))
+    assert k1.rasterize_zbuffer.launches == before + 1
+    rp = render_batch(arrays, hyp, K, tfs, out_hw=(160, 160), plain_raster=True)
+    assert rk["alpha"].mean() > 0.05
+    for key in rk:
+        assert torch.equal(rk[key], rp[key]), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("net", ["refiner", "scorer"])
+def test_trainer_batches_through_k1_match_plain(card, net):
+    """The trainer's batches at its shapes (32 pairs, or 4 scenes x 12, at
+    160x160, clutter and sensor model on): two K1 launches, and the batch
+    bit-equal to the same draws through the plain raster."""
+    from sixdof_tpu_torch.parallel import train as tr
+
+    mesh = load_mesh(MESH)
+    mesh.vertices -= (mesh.vertices.max(0) + mesh.vertices.min(0)) / 2
+    arrays = make_mesh_arrays(mesh, card)
+    cfg = tr.TrainConfig(batch_size=32, p_occlusion=0.5, p_sensor=0.5, occ_sub=0.85,
+                         n_hypotheses=12)
+    draw, make = ((tr.refiner_draws, tr.make_refiner_batch) if net == "refiner"
+                  else (tr.scorer_draws, tr.make_scorer_batch))
+    draws = draw(torch.Generator(card).manual_seed(1), cfg)
+    K = torch.tensor(K_IMG, device=card)
+    before = k1.rasterize_zbuffer.launches
+    kern = make(draws, arrays, K, 0.1, cfg)
+    assert k1.rasterize_zbuffer.launches == before + 2
+    plain = make(draws, arrays, K, 0.1, cfg, plain_raster=True)
+    for a, b in zip(kern, plain):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("name", [*ADVERSARIAL, "empty"])
 def test_raster_kernel_matches_plain_on_hand_placed_triangles(card, name):
     """The binning rule's edges (tests/torch_raster_cases.py): slivers one ulp
