@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch/CUDA port's pose server, capture path and trainer on one
-NVIDIA card and check them.
+"""Run the PyTorch/CUDA port's pose server, capture path, trainer, BOP
+campaign and live-camera loop on one NVIDIA card and check them.
 
     python3 chip_smoke.py
 
@@ -14,8 +14,10 @@ non-zero without printing the final result:
   k1       raster kernel K1 against its plain PyTorch version on the card
            (zbuf bit-equal, tid equal on every pixel), on the register
            shapes (B=252 at 96x96, B=64 at 160x160), the track shapes (B=1
-           at 160x160 and 96x96) and model_scaled_down.obj subdivided to
-           5120 triangles (B=64 at 160x160), with backface culling and
+           at 160x160 and 96x96), model_scaled_down.obj subdivided to
+           5120 triangles (B=64 at 160x160) and the bop phase's full grid
+           (B=252 at 160x160, on the pose mesh and on a 20,480-triangle
+           subdivision decimated to 5000), with backface culling and
            compaction; kernel (CUDA events and profiler device time) and
            plain timings, the bound from the pixels in each candidate's
            bounding box beside the brute-force bound, and the mean
@@ -87,9 +89,24 @@ non-zero without printing the final result:
            a fresh model's (the refiner's must be lower); the trained nets
            written, loaded by the predictors (outputs bit-equal) and
            registering frame 0 (a finite pose)
+  bop      the BOP campaign: each 6-frame demo scene converted by
+           tools/convert_scene_to_bop_torch.py and scored by
+           tools/run_bop_torch.py at full width, on the full grid and at
+           prune_to 64, plus synth_box with its model subdivided to 20,480
+           triangles (decimated by the tool); ADD-S held to
+           tools/parity_check.py's ceiling of each scene at both settings,
+           rotation on the full grid; ADD, AUC, recall and t error beside
+           PARITY_r5.json; K1 launches and seconds a run
+  live     the run loop at --no-demo --capture_background true on frames
+           0-5 with captures every 2 frames, against scene_kinect (a
+           stand-in for pykinect_azure serving synth_box at the Kinect's
+           sizes), through K1 and K2 and again through their plain
+           versions: the same poses (the pose phase's limits), identical
+           captures, the background captured and the camera stopped; ADD-S
+           against the annotated poses reported
   kernels  each kernel the run launched, with its check and numbers (K1's
-           launches: the pose phase's and the trainer's; K2's: the run
-           loop's in capture (b) and point_click's)
+           launches: the pose, train, bop and live phases'; K2's: the run
+           loop's in capture (b), point_click's and live's)
 
 The last line is {"ok": true, "device": {...}}.  Without CUDA the script
 exits 1 before any result.  `run(device="cpu", small=True)` rehearses every
@@ -179,7 +196,8 @@ def _sync(device):
 
 def _subdivide(mesh):
     """Midpoint subdivision: each triangle into four, sharing edge midpoints
-    (1280 -> 5120 triangles for model_scaled_down.obj)."""
+    (1280 -> 5120 triangles for model_scaled_down.obj); colours and uv of a
+    midpoint are its edge's mean."""
     import numpy as np
 
     from sixdof_tpu_torch.io.mesh_io import TriMesh
@@ -191,10 +209,11 @@ def _subdivide(mesh):
     a, b, c = f.T
     faces = np.stack([np.stack(t, 1) for t in ((a, ab, ca), (ab, b, bc), (ca, bc, c),
                                               (ab, bc, ca))], 1).reshape(-1, 3)
-    colors = mesh.vertex_colors
-    if colors is not None:
-        colors = np.vstack([colors, (colors[uniq[:, 0]] + colors[uniq[:, 1]]) / 2])
-    return TriMesh(np.vstack([v, (v[uniq[:, 0]] + v[uniq[:, 1]]) / 2]), faces, colors)
+
+    def split(x):
+        return None if x is None else np.vstack([x, (x[uniq[:, 0]] + x[uniq[:, 1]]) / 2])
+
+    return TriMesh(split(v), faces, split(mesh.vertex_colors), split(mesh.uv), mesh.texture)
 
 
 def _bbox_pairs(setup, faces, K, tfs, H, W):
@@ -654,26 +673,28 @@ def _capture_once(device, scene, small, plain):
 
 
 def _icp_parameters(params, small):
-    """The scene's ICP parameters; cut to a tiny size for the CPU rehearsal."""
+    """The scene's ICP parameters; cut to a tiny size for the CPU rehearsal
+    (a 6 mm first-frame downsample: at 8 mm frame 0 keeps so few points that
+    the JAX package's own refinement ends at fitness 0.8)."""
     if small:
         params["preprocess_target"]["max_pcd"] = 1000
-        params["preprocess_source"]["down_sample"] = 8.0
+        params["preprocess_source"]["down_sample"] = 6.0
         params["run_icp"].update(n_restarts=4, max_iter=5)
     return params
 
 
 def _scene_icp_parameters(small):
-    """Context in which every DataReader holds the ICP parameters of
-    _icp_parameters (the run loop builds its own reader)."""
+    """Context in which every reader (recorded or live) holds the ICP
+    parameters of _icp_parameters (the run loop builds its own reader)."""
     import contextlib
     from unittest import mock
 
-    from sixdof_tpu_torch.io.readers import DataReader
+    from sixdof_tpu_torch.io import readers
 
     if not small:
         return contextlib.nullcontext()
-    update_config = DataReader.update_config
-    return mock.patch.object(DataReader, "update_config",
+    update_config = readers._ReaderCommon.update_config
+    return mock.patch.object(readers._ReaderCommon, "update_config",
                              lambda self, args: _icp_parameters(update_config(self, args), small))
 
 
@@ -1347,6 +1368,245 @@ def phase_train(device, cfg, scene, small):
     return dict(k1=k1, launches=train_launches)
 
 
+# the BOP campaign's ceilings: tools/parity_check.py's THRESHOLDS of the two
+# metrics a BOP run reports, per scene (about 2x the JAX package's
+# PARITY_r5.json values)
+BOP_CEILINGS = {"synth_box": {"adds_mean_m": 0.005, "rot_err_deg_mean": 6.0},
+                "synth_box_sensor": {"adds_mean_m": 0.006, "rot_err_deg_mean": 6.0},
+                "synth_clutter": {"adds_mean_m": 0.006, "rot_err_deg_mean": 6.0},
+                "synth_clutter_sensor": {"adds_mean_m": 0.006, "rot_err_deg_mean": 7.0},
+                "synth_occl": {"adds_mean_m": 0.008, "rot_err_deg_mean": 15.0}}
+BOP_SCENES = list(BOP_CEILINGS)  # the five 6-frame demo scenes
+
+
+def _small_engine(small):
+    """Context in which every port FoundationPose renders 16x16 coarse crops
+    (the CPU rehearsal of tools that build their own engine)."""
+    import contextlib
+    import functools
+    from unittest import mock
+
+    import sixdof_tpu_torch.estimater as estimater
+
+    if not small:
+        return contextlib.nullcontext()
+    return mock.patch.object(estimater, "FoundationPose",
+                             functools.partial(estimater.FoundationPose, coarse_hw=(16, 16)))
+
+
+def phase_bop(device, small, refiner, scorer):
+    """The BOP path: each 6-frame demo scene converted by
+    tools/convert_scene_to_bop_torch.py, then tools/run_bop_torch.py's main
+    at full width (252 hypotheses, 96x96 coarse, 160x160 refine and score,
+    register 5 / track 2 iterations, the bundled networks), on the full grid
+    for every iteration (prune_to 0, tools/parity_check.py's setting, for
+    which the ceilings were set) and at the tool's default prune_to 64; one
+    more scene, synth_box with its model subdivided to 20,480 triangles,
+    which the tool decimates to 5000.  ADD-S is held to each scene's
+    ceiling at both settings, the rotation error on the full grid (pruned
+    to 64 after two coarse iterations, the cascade keeps the 180-degree
+    flip of the symmetric clutter object on synth_clutter and its sensor
+    twin, as the JAX package does, and on synth_occl the port's bf16
+    arithmetic misses the pose the JAX package's finds, ADD-S intact;
+    tools/bop_jax_reference.py gives the JAX package's numbers); K1
+    launches and seconds a run."""
+    import shutil
+
+    from sixdof_tpu_torch.io.mesh_io import load_mesh, save_mesh
+    from sixdof_tpu_torch.kernels.raster import rasterize_zbuffer
+
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    import convert_scene_to_bop_torch
+    import run_bop_torch
+
+    root = os.path.join(REPO, "build", "chip_smoke", "bop")
+    shutil.rmtree(root, ignore_errors=True)
+    with open(os.path.join(REPO, "PARITY_r5.json")) as f:
+        parity = json.load(f)["scenes"]
+    runs = [(s, s) for s in (["synth_box"] if small else BOP_SCENES)]
+    runs.append(("synth_box_20480", "synth_box"))
+    kw = dict(frames=2, max_hypotheses=8, shorter_side=120) if small else {}
+    results, launches, breaches = [], 0, []
+    for name, scene in runs:
+        bop_scene = convert_scene_to_bop_torch.main(os.path.join(REPO, "demo_data", scene),
+                                                    os.path.join(root, name), obj_id=1)
+        triangles = None
+        if name.endswith("20480"):
+            model = os.path.join(root, name, "models", "obj_000001.ply")
+            fine = _subdivide(_subdivide(load_mesh(model)))
+            save_mesh(model, fine)
+            triangles = len(fine.faces)
+        for prune_to in (0, 4 if small else 64):
+            with _small_engine(small):
+                _sync(device)
+                rasterize_zbuffer.launches = 0
+                t0 = time.perf_counter()
+                out = run_bop_torch.main(bop_scene, device=device, refiner=refiner,
+                                         scorer=scorer, prune_to=prune_to, **kw)
+                _sync(device)
+                seconds = time.perf_counter() - t0
+            k1 = rasterize_zbuffer.launches
+            launches += k1
+            ref = parity[scene]
+            gated = BOP_CEILINGS[scene] if prune_to == 0 else \
+                {"adds_mean_m": BOP_CEILINGS[scene]["adds_mean_m"]}
+            res = dict(name=name, prune_to=prune_to, seconds=seconds, k1_launches=k1,
+                       model_triangles=triangles, **out,
+                       jax_parity_r5={k: ref[k] for k in ("adds_mean_m", "add_mean_m",
+                                                          "adds_auc_0.1d", "rot_err_deg_mean",
+                                                          "t_err_m_mean")},
+                       ceilings=gated)
+            emit({"phase": "bop", **res})
+            results.append(res)
+            breaches += [f"{name} (prune_to {prune_to}): {k}={out[k]:.4g} > {c}"
+                         for k, c in gated.items() if not 0 <= out[k] <= c]
+            if device.type == "cuda" and k1 == 0:
+                raise RuntimeError(f"the BOP campaign on {name} did not launch raster kernel K1")
+            if out["frames"] != (2 if small else 6) or out["registered_frames"] != 1:
+                raise RuntimeError(f"the BOP campaign on {name} did not run every frame: {out}")
+    if breaches and not small:
+        raise RuntimeError(f"the BOP campaign above its ceilings: {breaches}")
+    return dict(launches=launches, results=results)
+
+
+def scene_kinect(scene, schedule):
+    """A stand-in `pykinect_azure` module whose device
+    (tests/torch_kinect_fake.py's ScheduledDevice) serves @scene as an Azure
+    Kinect would: colour resized to 1280x720 BGRA, depth to 320x288 (uint16
+    mm), the frame's point cloud (depth camera, mm), and colour intrinsics
+    the scene's K scaled by (2, 1.5) (depth's by (0.5, 0.6)), the cameras
+    coinciding.  Each `update()` serves the next entry of @schedule (a
+    frame index, or "background" for background/box.ply's cloud with frame
+    0's images).  Returns (module, device)."""
+    import numpy as np
+
+    from sixdof_tpu_torch.io.mesh_io import load_point_cloud
+    from sixdof_tpu_torch.io.png import read_png
+    from sixdof_tpu_torch.io.readers import resize_nearest
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import torch_kinect_fake
+
+    with open(os.path.join(scene, "configs", "camera_intrinsics.json")) as f:
+        intr = json.load(f)
+
+    def frame(entry):
+        i = 0 if entry == "background" else entry
+        bgr = read_png(os.path.join(scene, "rgb", f"rgb_{i:04d}.png"))
+        bgra = np.concatenate([bgr, np.full(bgr.shape[:2] + (1,), 255, np.uint8)], axis=-1)
+        depth = read_png(os.path.join(scene, "depth", f"depth_{i:04d}.png"))
+        cloud = os.path.join(scene, "background", "box.ply") if entry == "background" else \
+            os.path.join(scene, "pcd", f"cloud_{i:04d}.ply")
+        return (resize_nearest(bgra, 1280, 720), resize_nearest(depth, 320, 288),
+                load_point_cloud(cloud).points)
+
+    def params(cam, sx, sy):
+        return cam["fx"] * sx, cam["fy"] * sy, cam["cx"] * sx, cam["cy"] * sy
+
+    calibration = torch_kinect_fake.Calibration(params(intr["color"], 2.0, 1.5),
+                                                params(intr["depth"], 0.5, 0.6), (0.0, 0.0, 0.0))
+    device = torch_kinect_fake.ScheduledDevice(frame, schedule, calibration)
+    return torch_kinect_fake.shim_module(device), device
+
+
+# the loop's camera polls: the empty scene for --capture_background, one
+# poll before the first frame (the heatmap's), then a frame a poll
+LIVE_SCHEDULE = ["background", 0, 0, 1, 2, 3, 4, 5]
+
+
+def live_scene_dir(scene, out):
+    """A live run's scene directory: @scene's configs, mesh, heatmap and mask,
+    no background (the live reader captures it)."""
+    import shutil
+
+    shutil.rmtree(out, ignore_errors=True)
+    for sub in ("configs", "mesh", "heatmap", "masks"):
+        shutil.copytree(os.path.join(scene, sub), os.path.join(out, sub))
+    return out
+
+
+def _live_once(device, cfg, scene, small, refiner, scorer, plain):
+    """The port's loop at --no-demo --capture_background true against
+    scene_kinect(@scene); K1 and K2 launches counted over the run."""
+    import functools
+    from unittest import mock
+
+    import numpy as np
+
+    from sixdof_tpu_torch.app import run as app_run
+    from sixdof_tpu_torch.kernels import raytrace as k2
+    from sixdof_tpu_torch.kernels.raster import rasterize_zbuffer
+
+    out = os.path.join(REPO, "build", "chip_smoke", "live_plain" if plain else "live")
+    base = live_scene_dir(scene, os.path.join(out, "scene"))
+    n_frames = 3 if small else 6
+    args = _loop_args(cfg, base, small, os.path.join(out, "debug"),
+                      ["--no-demo", "--capture_background", "true", "--no_server",
+                       "--max_frames", str(n_frames), "--capture_every", "2",
+                       "--track_pipeline", "3", "--debug", "0"])
+    mod, cam = scene_kinect(scene, LIVE_SCHEDULE)
+    state = app_run.LoopState()
+    engine = functools.partial(app_run.FoundationPose, plain_raster=plain)
+    with mock.patch.dict(sys.modules, {"pykinect_azure": mod}), \
+            mock.patch.object(time, "sleep", lambda s: None), \
+            mock.patch.object(app_run, "FoundationPose", engine), _scene_icp_parameters(small):
+        _sync(device)
+        rasterize_zbuffer.launches = k2.ray_mesh_intersect.launches = 0
+        frame_times = app_run.main(args, device=device, refiner=refiner, scorer=scorer,
+                                   plain_raytrace=plain, state=state)
+        _sync(device)
+    poses = [np.loadtxt(os.path.join(out, "debug", "ob_in_cam", f"{i:04d}.txt"))
+             for i in range(n_frames)]
+    return dict(frames=len(frame_times), frame_ms=[t * 1e3 for t in frame_times],
+                k1_launches=rasterize_zbuffer.launches,
+                k2_launches=k2.ray_mesh_intersect.launches, stages=state.stages,
+                served=cam.served, camera_stopped=cam.stopped and cam.closed,
+                background_saved=os.path.exists(os.path.join(base, "background", "box.ply")),
+                captures=[{"frame": f, "fitness": r.fitness} for f, r in state.captures],
+                _poses=poses, _tfs=[r.transformation for _, r in state.captures],
+                _pts=[p.points for p in state.intersection_pcds])
+
+
+def phase_live(device, cfg, scene, small, refiner, scorer):
+    """The live-camera path: the loop against a stand-in Kinect serving
+    @scene, through K1 and K2, then through their plain versions; poses to
+    the pose phase's limits, captures identical; ADD-S against the
+    annotated poses reported."""
+    import numpy as np
+
+    from sixdof_tpu_torch.io.mesh_io import load_mesh
+    from sixdof_tpu_torch.metrics import adds_err
+
+    kern = _live_once(device, cfg, scene, small, refiner, scorer, plain=False)
+    plain = _live_once(device, cfg, scene, small, refiner, scorer, plain=True)
+    rot = [_rot_deg(a[:3, :3], b[:3, :3]) for a, b in zip(kern["_poses"], plain["_poses"])]
+    trans = [float(np.linalg.norm(a[:3, 3] - b[:3, 3]))
+             for a, b in zip(kern["_poses"], plain["_poses"])]
+    model = load_mesh(os.path.join(scene, "mesh", "model_scaled_down.obj")).vertices
+    gts = [np.loadtxt(os.path.join(scene, "annotated_poses", f"{i:04d}.txt"))
+           for i in range(len(kern["_poses"]))]
+    res = {k: v for k, v in kern.items() if not k.startswith("_")}
+    res.update(adds_m=[adds_err(p, g, model) for p, g in zip(kern["_poses"], gts)],
+               plain_frame_ms=plain["frame_ms"], vs_plain_rot_deg=rot, vs_plain_trans_m=trans,
+               capture_tf_max_abs_diff=_same(kern["_tfs"], plain["_tfs"]),
+               capture_pts_max_abs_diff_mm=_same(kern["_pts"], plain["_pts"]),
+               defect_points=[len(p) for p in kern["_pts"]])
+    emit({"phase": "live", **res})
+    n_captures = 2 if small else 3  # frame 0's ICP and a capture every 2 frames
+    if device.type == "cuda" and (kern["k1_launches"] == 0 or kern["k2_launches"] == 0):
+        raise RuntimeError(f"the live loop launched K1 {kern['k1_launches']} and K2 "
+                           f"{kern['k2_launches']} times")
+    if not (res["background_saved"] and res["camera_stopped"]
+            and len(res["captures"]) == n_captures and min(res["defect_points"]) > 0):
+        raise RuntimeError(f"the live loop did not capture, save or stop: {res}")
+    if max(rot) > POSE_ROT_DEG_MAX or max(trans) > POSE_TRANS_M_MAX \
+            or res["capture_tf_max_abs_diff"] > CAPTURE_TF_ATOL \
+            or res["capture_pts_max_abs_diff_mm"] > CAPTURE_PTS_ATOL:
+        raise RuntimeError(f"the live loop through the kernels and the plain versions "
+                           f"disagree: rot {rot} deg, trans {trans} m, {res}")
+    return dict(k1_launches=kern["k1_launches"], k2_launches=kern["k2_launches"])
+
+
 def _rot_deg(R1, R2):
     """Rotation angle between R1 and R2 from the chord ||R1 - R2||_F
     (= 2 sqrt(2) sin(angle / 2)), stable near zero unlike the trace form."""
@@ -1364,7 +1624,7 @@ def run(device="cuda", small=False):
     from sixdof_tpu_torch.config import PipelineConfig
     from sixdof_tpu_torch.device import resolve_device
     from sixdof_tpu_torch.io import png
-    from sixdof_tpu_torch.io.mesh_io import load_mesh
+    from sixdof_tpu_torch.io.mesh_io import decimate_mesh, load_mesh
     from sixdof_tpu_torch.io.readers import DataReader
     from sixdof_tpu_torch.kernels import raster, raytrace
     from sixdof_tpu_torch.kernels.build import build_all
@@ -1408,14 +1668,20 @@ def run(device="cuda", small=False):
     rng = np.random.RandomState(0)
     grid[:, :3, 3] = np.array([0.0, 0.0, 0.55]) + rng.uniform(-0.02, 0.02, (len(grid), 3))
     poses = torch.as_tensor(grid, dtype=torch.float32, device=dev)
-    # the register shapes, the track shapes, and the 5120-triangle mesh (the
-    # size at which the JAX package switches to its banded raster form)
+    # the register shapes, the track shapes, the 5120-triangle mesh (the
+    # size at which the JAX package switches to its banded raster form), and
+    # the bop phase's full grid (every hypothesis refined and scored at
+    # 160x160) on the pose mesh and on a 20,480-triangle subdivision
+    # decimated to 5000, as tools/run_bop_torch.py decimates it
     arrays, fine = make_mesh_arrays(mesh, dev), make_mesh_arrays(_subdivide(mesh), dev)
-    sizes = ((8, 24), (4, 40), (1, 40), (1, 24), (4, 40)) if small else \
-        ((252, 96), (64, 160), (1, 160), (1, 96), (64, 160))
+    decimated = make_mesh_arrays(decimate_mesh(_subdivide(_subdivide(mesh)), target_tris=5000),
+                                 dev)
+    sizes = ((8, 24), (4, 40), (1, 40), (1, 24), (4, 40), (8, 40), (8, 40)) if small else \
+        ((252, 96), (64, 160), (1, 160), (1, 96), (64, 160), (252, 160), (252, 160))
     labels = ("register_coarse", "register_refine", "track_refine", "track_coarse",
-              "subdivided_5120")
-    cases = [(label, fine if label == "subdivided_5120" else arrays, poses[:B], hw, hw)
+              "subdivided_5120", "register_full_grid", "full_grid_decimated_5000")
+    meshes = {"subdivided_5120": fine, "full_grid_decimated_5000": decimated}
+    cases = [(label, meshes.get(label, arrays), poses[:B], hw, hw)
              for label, (B, hw) in zip(labels, sizes)]
     k1 = phase_k1(dev, cases, K, diameter, n_time=2 if small else 50)
 
@@ -1463,13 +1729,17 @@ def run(device="cuda", small=False):
     # the trainer: its batches through K1 at the trainer's shapes, textured
     # meshes, training from scratch and from the bundled weights
     train = phase_train(dev, cfg, scene, small)
+    # the BOP campaign on every 6-frame demo scene, and the live-camera loop
+    bop = phase_bop(dev, small, refiner, scorer)
+    live = phase_live(dev, cfg, scene, small, refiner, scorer)
 
     main_shape = k1[0]
     kernels = [{
         "name": "raster_zbuffer", "route": "cuda",
         "source": "sixdof_tpu_torch/csrc/raster_zbuffer.cu",
         "replaces": "sixdof_tpu/ops/pallas/raster_kernel.py:188",
-        "launches": kern["launches"] + train["launches"],
+        "launches": kern["launches"] + train["launches"] + bop["launches"]
+        + live["k1_launches"],
         "max_abs_err": max(r["max_abs_depth_err"] for r in k1 + train["k1"]),
         "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"], "bound_by": main_shape["bound_by"],
@@ -1479,7 +1749,7 @@ def run(device="cuda", small=False):
         "name": "ray_mesh_intersect", "route": "cuda",
         "source": "sixdof_tpu_torch/csrc/ray_mesh.cu",
         "replaces": "sixdof_tpu/ops/pallas/raytrace_kernel.py:85",
-        "launches": cap["loop_k2_launches"] + clicks[0]["launches"],
+        "launches": cap["loop_k2_launches"] + clicks[0]["launches"] + live["k2_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in k2),
         "ms": k2[0]["ms"], "plain_ms": k2[0]["plain_ms"],
         "bound_ms": k2[0]["bound_ms"], "bound_by": k2[0]["bound_by"],

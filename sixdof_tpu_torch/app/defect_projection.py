@@ -77,6 +77,17 @@ def load_extrinsics(file_path):
     return build("color_to_depth"), build("depth_to_color")
 
 
+def generate_centered_heatmap(image_shape, max_intensity=1.0, sigma=50):
+    """A Gaussian blob at the image centre (OpenCV's GaussianBlur of an
+    impulse), scaled to a peak of 1."""
+    from ..io.readers import gaussian_blur
+
+    heatmap = np.zeros(image_shape)
+    heatmap[image_shape[0] // 2, image_shape[1] // 2] = max_intensity
+    heatmap = gaussian_blur(heatmap, sigma)
+    return heatmap / np.max(heatmap)
+
+
 def heatmap_to_points(heatmap, threshold=0.5):
     """Thresholded pixel list [(x, y, intensity), ...]."""
     y_coords, x_coords = np.where(heatmap > threshold)

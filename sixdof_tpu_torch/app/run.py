@@ -21,8 +21,13 @@ Port of `sixdof_tpu/app/run.py` on one device:
   and writes its refiner crops to `{debug_dir}/vis_refiner.png`.  The JAX
   app's OpenCV window (a display) has no counterpart.
 
+The frames come from the recorded scene `--test_scene_dir` (`--demo`, the
+default) or, with `--no-demo`, from the live Azure Kinect
+(`io/readers.py::KinectReader`, which needs `pykinect_azure`; with
+`--capture_background true` it captures the empty scene's cloud first).
 What the viewer shows is also kept on a `LoopState` the caller may pass.
-Not ported: the live Kinect reader and the TPU compile-hiding threads.  The
+Not ported: the TPU compile-hiding threads (`--precompile` is accepted and
+ignored).  The
 networks load `--refiner_ckpt` and `--scorer_ckpt`, by default the numpy
 export of the bundled weights (`weights_torch/`, written by
 `tools/export_torch_weights.py`) when it exists, else they start from a
@@ -46,7 +51,7 @@ from ..device import resolve_device
 from ..estimater import FoundationPose
 from ..io.mesh_io import TriMesh, load_mesh
 from ..io.png import write_png_rgb8
-from ..io.readers import DataReader
+from ..io.readers import DataReader, KinectReader
 from ..models.predict import PoseRefinePredictor, ScorePredictor
 from ..utils.profiling import StageTimer, set_seed
 from ..utils.vis import draw_posed_3d_box, draw_xyz_axis
@@ -158,8 +163,13 @@ def _loop(args, dev, refiner, scorer, plain_raytrace, state, capture_queue):
         est.rot_grid = est.rot_grid[::step][: args.max_hypotheses]
         logging.info(f"rotation grid capped to {len(est.rot_grid)} hypotheses")
     logging.info("Estimator initialization done")
-    reader = DataReader(args.test_scene_dir, shorter_side=args.shorter_side, zfar=np.inf,
-                        arguments=args)
+    if args.demo:
+        reader = DataReader(args.test_scene_dir, shorter_side=args.shorter_side, zfar=np.inf,
+                            arguments=args)
+    else:
+        logging.info("live demo")
+        reader = KinectReader(args.test_scene_dir, capture_background=args.capture_background,
+                              shorter_side=args.shorter_side, zfar=np.inf, arguments=args)
 
     intersection_pcds = []
     frame_times = []
@@ -231,17 +241,21 @@ def _loop(args, dev, refiner, scorer, plain_raytrace, state, capture_queue):
             current_result, new_pcd = pcap.result()
             consume_capture(j, to_initial_tf(pp.numpy()), current_result, new_pcd)
 
+    reader.update()
     heatmap, overlay = heatmap_overlay(0)
-    max_frames = min(args.max_frames or len(reader), len(reader))
+    max_frames = min(args.max_frames or len(reader), len(reader))  # a live reader has no end
     pipeline_depth = args.track_pipeline
     async_mode = debug < 1 and pipeline_depth > 0
     i = 0
     while i < max_frames:
         logging.info(f"i: {i}")
         t0 = time.perf_counter()
-        with timer.stage("read"):  # PNG decode on the host
+        with timer.stage("read"):  # the next camera frame, or the PNG decode
+            reader.update()
             color = reader.get_color(i)
             depth = reader.get_depth(i)
+        if color is None or depth is None:  # a live reader before its first frame
+            continue
         if i == 0:
             mask = reader.get_mask(color, i).astype(bool)
             with timer.stage("register"):
@@ -342,6 +356,7 @@ def _loop(args, dev, refiner, scorer, plain_raytrace, state, capture_queue):
 
     drain_captures()  # consume any in-flight capture event
     drain_pending()  # drain the readback pipeline
+    reader.stop_camera()
     timer.log()
     state.stages = timer.summary()
     if frame_times:
@@ -383,8 +398,20 @@ def build_parser():
                              "captures run asynchronously; >= 1: every frame syncs")
     parser.add_argument("--debug_dir", type=str, default=f"{code_dir}/debug")
     parser.add_argument("--shorter_side", type=int, default=pc.shorter_side)
+    parser.add_argument("--demo", action="store_true", default=pc.demo,
+                        help="replay the recorded scene --test_scene_dir (the default)")
+    parser.add_argument("--no-demo", dest="demo", action="store_false",
+                        help="capture from the live Azure Kinect (needs pykinect_azure); "
+                             "--test_scene_dir then holds its configs, mesh and background")
+    parser.add_argument("--icp", default=pc.icp, type=str2bool,
+                        help="parsed and unused by the loop, as in the JAX app")
+    parser.add_argument("--info", default=True, type=str2bool,
+                        help="parsed and unused by the loop, as in the JAX app")
     parser.add_argument("--box", type=str2bool, default=None)
     parser.add_argument("--mesh", type=str2bool, default=None)
+    parser.add_argument("--capture_background", type=str2bool, default=pc.capture_background,
+                        help="with --no-demo: capture the empty scene's cloud at start and "
+                             "save it as background/box.ply")
     parser.add_argument("--voxel_size", type=float, default=None)
     parser.add_argument("--max_frames", type=int, default=pc.max_frames)
     parser.add_argument("--capture_every", type=int, default=pc.capture_every,
@@ -396,6 +423,9 @@ def build_parser():
                              "(0 = the full grid for all iterations)")
     parser.add_argument("--max_hypotheses", type=int, default=None,
                         help="cap the rotation grid")
+    parser.add_argument("--precompile", type=int, default=1,
+                        help="accepted and ignored: the JAX app compiles its TPU programs "
+                             "ahead with it; the port has nothing to compile ahead")
     parser.add_argument("--track_pipeline", type=int, default=pc.track_pipeline,
                         help="tracked-pose readback pipeline depth (0 = sync every frame)")
     parser.add_argument("--refiner_ckpt", type=str, default=pc.refiner_ckpt,

@@ -176,6 +176,12 @@ class PipelineConfig:
     est_refine_iter: int = 5
     track_refine_iter: int = 2
     shorter_side: Optional[int] = None
+    # the JAX app's reader switches: a recorded scene (demo) or the live
+    # Kinect, a background captured at start; icp is parsed and unused, as
+    # in the JAX loop
+    demo: bool = True
+    icp: bool = False
+    capture_background: bool = False
     input_resize: Tuple[int, int] = (160, 160)
     # the app's FoundationPose arguments (sixdof_tpu/app/run.py defaults)
     prune_to: int = 64

@@ -121,6 +121,7 @@ class FoundationPose:
         self.scorer = scorer if scorer is not None else ScorePredictor(self.device)
         self.refiner = refiner if refiner is not None else PoseRefinePredictor(self.device)
         self.pose_last = None  # per the centred mesh
+        self.gt_pose = None  # set by a caller that has one: compute_add_err_to_gt_pose
 
     # ------------------------------------------------------------- setup --
 
@@ -153,6 +154,16 @@ class FoundationPose:
         # culling is an identity only for closed, outward-wound meshes
         self.backface_cull = bool(mesh.is_watertight()) and mesh.signed_volume() > 0
         self.symmetry_tfs = np.eye(4)[None] if symmetry_tfs is None else np.asarray(symmetry_tfs)
+
+    def compute_add_err_to_gt_pose(self, poses):
+        """ADD error of each of @poses against `self.gt_pose` over the
+        downsampled model points; -1 each while `gt_pose` is None."""
+        if self.gt_pose is None:
+            return -np.ones(len(poses))
+        from .metrics import add_err
+
+        return np.array([add_err(np.asarray(p), np.asarray(self.gt_pose), np.asarray(self.pts))
+                         for p in poses])
 
     def get_tf_to_centered_mesh(self):
         tf_to_center = np.eye(4)

@@ -92,6 +92,10 @@ class TriMesh:
         return m
 
     @property
+    def triangles(self):  # Open3D-compatible alias
+        return self.faces
+
+    @property
     def face_normals(self):
         v0 = self.vertices[self.faces[:, 0]]
         v1 = self.vertices[self.faces[:, 1]]
@@ -183,9 +187,11 @@ class TriMesh:
 
 
 def _read_texture(path):
-    """A `map_Kd` image as (H,W,3) uint8 RGB.  Only PNG decodes here (grey
-    and RGBA convert to RGB, as PIL's ``convert("RGB")`` does); any other
-    format raises rather than rendering the mesh without its texture."""
+    """A `map_Kd` image as (H,W,3) uint8 RGB, as PIL's ``convert("RGB")``
+    gives it.  Only PNG decodes here: grey is replicated, alpha and palette
+    transparency dropped, 16-bit grey clipped to 255 and other 16-bit
+    samples shifted to their high byte; any other format raises rather
+    than rendering the mesh without its texture."""
     from .png import read_png
 
     with open(path, "rb") as f:
@@ -195,8 +201,9 @@ def _read_texture(path):
         raise ValueError(f"{path}: the texture is a {kind} image; only PNG textures "
                          "are read (convert it to PNG)")
     img = read_png(path)
-    if img.dtype != np.uint8:
-        raise ValueError(f"{path}: a 16-bit texture; only 8-bit PNG textures are read")
+    if img.dtype == np.uint16:
+        img = np.minimum(img, 255) if img.ndim == 2 else img >> 8
+        img = img.astype(np.uint8)
     if img.ndim == 2:
         return np.repeat(img[..., None], 3, axis=-1)
     return np.ascontiguousarray(img[..., 2::-1])  # BGR(A) -> RGB
@@ -462,3 +469,55 @@ def save_mesh(path, mesh: TriMesh):
 
 def save_point_cloud(path, pcd: PointCloud):
     save_ply(path, pcd)
+
+
+def decimate_mesh(mesh: TriMesh, target_tris=None, voxel_size=None) -> TriMesh:
+    """Vertex-clustering decimation for the raster.
+
+    Clusters vertices on a uniform grid (cell size @voxel_size, or found by
+    bisection so that the faces land at 0.7-1x @target_tris), collapses each
+    cluster to its mean (colours and uv too), drops degenerate faces and
+    repeated faces (the first kept, in face order).  A mesh already at or
+    under @target_tris is returned as a copy.
+    """
+    v = np.asarray(mesh.vertices, dtype=np.float64)
+    f = np.asarray(mesh.faces, dtype=np.int64)
+    if len(f) == 0 or (target_tris is not None and len(f) <= target_tris):
+        return mesh.copy()
+
+    def cluster(vox):
+        keys = np.floor(v / vox).astype(np.int64)
+        keys -= keys.min(axis=0)
+        dims = keys.max(axis=0) + 1
+        flat = (keys[:, 0] * dims[1] + keys[:, 1]) * dims[2] + keys[:, 2]
+        uniq, inverse, counts = np.unique(flat, return_inverse=True, return_counts=True)
+
+        def mean_of(attr):
+            if attr is None:
+                return None
+            out = np.zeros((len(uniq), attr.shape[1]), dtype=np.float64)
+            np.add.at(out, inverse, np.asarray(attr, dtype=np.float64))
+            return out / counts[:, None]
+
+        nf = inverse[f]
+        nf = nf[(nf[:, 0] != nf[:, 1]) & (nf[:, 1] != nf[:, 2]) & (nf[:, 0] != nf[:, 2])]
+        _, first = np.unique(np.sort(nf, axis=1), axis=0, return_index=True)
+        return TriMesh(mean_of(v), nf[np.sort(first)],
+                       vertex_colors=mean_of(mesh.vertex_colors), uv=mean_of(mesh.uv),
+                       texture=None if mesh.texture is None else mesh.texture.copy())
+
+    if voxel_size is not None:
+        return cluster(float(voxel_size))
+    diag = float(np.linalg.norm(v.max(axis=0) - v.min(axis=0)))
+    lo, hi = diag / 1000.0, diag / 2.0
+    best = None
+    for _ in range(20):
+        mid = (lo + hi) / 2.0
+        m = cluster(mid)
+        if len(m.faces) > target_tris:
+            lo = mid
+        else:
+            best, hi = m, mid
+        if best is not None and 0.7 * target_tris <= len(best.faces) <= target_tris:
+            break
+    return best if best is not None else cluster(hi)

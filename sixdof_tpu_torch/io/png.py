@@ -1,13 +1,17 @@
-"""PNG decoding with numpy and zlib, standing in for ``cv2.imread(path, -1)``,
-and a minimal writer of 8-bit greyscale, RGB and RGBA images (what
-``cv2.imwrite`` writes for a mask, an overlay or a debug drawing).
+"""PNG decoding with numpy and zlib, standing in for ``cv2.imread(path, -1)``
+and ``cv2.imread(path, cv2.IMREAD_COLOR)``, and a minimal writer of 8-bit
+greyscale, RGB and RGBA and 16-bit greyscale images (what ``cv2.imwrite``
+writes for a mask, an overlay, a debug drawing or a depth frame).
 
-Supports 8-bit gray, RGB and RGBA and 16-bit gray, non-interlaced, with
-all five row filters (the demo scenes use 8-bit RGB, 8-bit gray and 16-bit
-gray).  The row filters are undone in C (`csrc/png_unfilter.c`, built with
-the system C compiler at first use; without one, decoding raises).  Returns
-what OpenCV returns for ``IMREAD_UNCHANGED``: (H,W) for gray, (H,W,3) BGR
-for RGB, (H,W,4) BGRA for RGBA; uint8 or uint16.
+Decodes every non-interlaced PNG: greyscale at 1, 2, 4, 8 and 16 bits (the
+low depths scaled to 0..255), RGB, RGBA and grey+alpha at 8 and 16 bits,
+and palette images at 1-8 bits, with a `tRNS` chunk turning palette and RGB
+images into BGRA (a grey image's `tRNS` is ignored), as OpenCV's libpng
+reader does.  The row filters are undone in C (`csrc/png_unfilter.c`, built
+with the system C compiler at first use; without one, decoding raises).
+Adam7-interlaced files raise.  `read_png` returns what OpenCV returns for
+``IMREAD_UNCHANGED``: (H,W) grey, (H,W,3) BGR, or (H,W,4) BGRA, uint8 or
+uint16.
 """
 from __future__ import annotations
 
@@ -20,7 +24,8 @@ import numpy as np
 from ..kernels.build import KernelLibrary
 
 _SIG = b"\x89PNG\r\n\x1a\n"
-_CHANNELS = {0: 1, 2: 3, 6: 4}  # colour type -> samples per pixel
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # colour type -> samples per pixel
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
 
 
 def _bind(lib):
@@ -44,45 +49,99 @@ def _unfilter(raw, h, stride, bpp):
     return out
 
 
-def read_png(path):
-    """Decode a PNG file as ``cv2.imread(path, cv2.IMREAD_UNCHANGED)`` does."""
-    with open(path, "rb") as f:
-        data = f.read()
+def _chunks(path, data):
+    """The IHDR fields, the joined IDAT bodies, PLTE and tRNS of a PNG."""
     if data[:8] != _SIG:
         raise ValueError(f"{path}: not a PNG file")
-    pos = 8
-    idat = []
-    width = height = bit_depth = color_type = None
+    pos, idat, ihdr, plte, trns = 8, [], None, None, None
     while pos < len(data):
         (length,) = struct.unpack(">I", data[pos : pos + 4])
         ctype = data[pos + 4 : pos + 8]
         body = data[pos + 8 : pos + 8 + length]
         pos += 12 + length
         if ctype == b"IHDR":
-            width, height, bit_depth, color_type, _, _, interlace = struct.unpack(">IIBBBBB", body)
-            if interlace:
-                raise NotImplementedError(f"{path}: interlaced PNG")
+            ihdr = struct.unpack(">IIBBBBB", body)
         elif ctype == b"IDAT":
             idat.append(body)
+        elif ctype == b"PLTE":
+            plte = body
+        elif ctype == b"tRNS":
+            trns = body
         elif ctype == b"IEND":
             break
-    if color_type not in _CHANNELS or bit_depth not in (8, 16) \
-            or (bit_depth == 16 and color_type != 0):
-        raise NotImplementedError(f"{path}: colour type {color_type}, bit depth {bit_depth}")
-    ch = _CHANNELS[color_type]
-    bpp = ch * bit_depth // 8
-    stride = width * bpp
-    raw = zlib.decompress(b"".join(idat))
-    img = _unfilter(raw, height, stride, bpp)
+    if ihdr is None:
+        raise ValueError(f"{path}: no IHDR chunk")
+    return ihdr, b"".join(idat), plte, trns
+
+
+def _samples(rows, width, bit_depth, ch):
+    """(H, W, ch) samples of the unfiltered rows: bytes, big-endian 16-bit
+    words, or 1/2/4-bit fields unpacked most significant first."""
+    h = rows.shape[0]
     if bit_depth == 16:
-        img = img.reshape(height, width * ch, 2)
-        img = (img[..., 0].astype(np.uint16) << 8) | img[..., 1].astype(np.uint16)
-    img = img.reshape(height, width, ch)
-    if ch == 1:
-        return img[..., 0]
-    if ch == 3:
+        words = rows.reshape(h, width * ch, 2).astype(np.uint16)
+        return ((words[..., 0] << 8) | words[..., 1]).reshape(h, width, ch)
+    if bit_depth == 8:
+        return rows.reshape(h, width, ch)
+    bits = np.unpackbits(rows, axis=1).reshape(h, -1, bit_depth)
+    weights = (1 << np.arange(bit_depth - 1, -1, -1)).astype(np.uint8)
+    return (bits * weights).sum(axis=-1, dtype=np.uint8)[:, :width, None]
+
+
+def read_png(path):
+    """Decode a PNG file as ``cv2.imread(path, cv2.IMREAD_UNCHANGED)`` does."""
+    with open(path, "rb") as f:
+        data = f.read()
+    (width, height, bit_depth, color_type, _, _, interlace), idat, plte, trns = \
+        _chunks(path, data)
+    if bit_depth not in _DEPTHS.get(color_type, ()):
+        raise ValueError(f"{path}: invalid PNG colour type {color_type} at bit depth "
+                         f"{bit_depth}")
+    if interlace:
+        raise NotImplementedError(f"{path}: an Adam7-interlaced PNG; only non-interlaced "
+                                  "PNGs are read")
+    ch = _CHANNELS[color_type]
+    stride = (width * ch * bit_depth + 7) // 8
+    img = _samples(_unfilter(zlib.decompress(idat), height, stride,
+                             max(1, ch * bit_depth // 8)), width, bit_depth, ch)
+    if color_type == 3:  # palette -> RGB(A), entries past PLTE's end black
+        if plte is None:
+            raise ValueError(f"{path}: a palette PNG without a PLTE chunk")
+        table = np.zeros((256, 4), np.uint8)
+        table[:, 3] = 255
+        pal = np.frombuffer(plte, np.uint8)[: len(plte) // 3 * 3].reshape(-1, 3)[:256]
+        table[: len(pal), :3] = pal
+        if trns is not None:
+            alpha = np.frombuffer(trns, np.uint8)[:256]
+            table[: len(alpha), 3] = alpha
+        img = table[img[..., 0]][..., : 4 if trns is not None else 3]
+    elif color_type == 0:
+        img = img[..., 0]
+        if bit_depth < 8:
+            img = img * np.uint8(255 // ((1 << bit_depth) - 1))
+        return img
+    elif color_type == 4:  # grey + alpha -> BGRA
+        return np.ascontiguousarray(img[..., [0, 0, 0, 1]])
+    elif color_type == 2 and trns is not None:  # the tRNS colour key -> alpha
+        key = np.array(struct.unpack(">HHH", trns[:6]), dtype=img.dtype)
+        top = np.iinfo(img.dtype).max
+        alpha = np.where((img == key).all(axis=-1), 0, top).astype(img.dtype)
+        img = np.concatenate([img, alpha[..., None]], axis=-1)
+    if img.shape[-1] == 3:
         return np.ascontiguousarray(img[..., ::-1])  # RGB -> BGR
     return np.ascontiguousarray(img[..., [2, 1, 0, 3]])  # RGBA -> BGRA
+
+
+def read_png_color(path):
+    """Decode a PNG file as ``cv2.imread(path, cv2.IMREAD_COLOR)`` does:
+    (H,W,3) uint8 BGR, grey replicated, alpha dropped, 16-bit samples
+    shifted down to their high byte."""
+    img = read_png(path)
+    if img.dtype == np.uint16:
+        img = (img >> 8).astype(np.uint8)
+    if img.ndim == 2:
+        return np.repeat(img[..., None], 3, axis=-1)
+    return np.ascontiguousarray(img[..., :3])
 
 
 def _chunk(ctype, body):
@@ -91,16 +150,34 @@ def _chunk(ctype, body):
 
 
 def _write_png8(path, img, color_type):
-    """Write an 8-bit image (no row filter; colour type 0, 2 or 6), deflated
-    at zlib level 1, OpenCV's default for PNG."""
+    """Write an 8-bit image (no row filter; colour type 0, 2 or 6)."""
     h, w = img.shape[:2]
     stride = w * _CHANNELS[color_type]
     rows = np.zeros((h, stride + 1), dtype=np.uint8)  # filter type 0 before each row
     rows[:, 1:] = img.reshape(h, stride)
-    data = (_SIG + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0))
+    _write(path, w, h, 8, color_type, rows)
+
+
+def _write(path, w, h, bit_depth, color_type, rows):
+    """A PNG of @rows (each a filter byte and the row), deflated at zlib
+    level 1, OpenCV's default for PNG."""
+    data = (_SIG + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, bit_depth, color_type, 0, 0,
+                                                0))
             + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 1)) + _chunk(b"IEND", b""))
     with open(path, "wb") as f:
         f.write(data)
+
+
+def write_png_gray16(path, img):
+    """Write a (H,W) uint16 image as a 16-bit greyscale PNG (a depth frame in
+    millimetres, as ``cv2.imwrite`` writes one)."""
+    img = np.ascontiguousarray(img)
+    if img.ndim != 2 or img.dtype != np.uint16:
+        raise ValueError(f"expected a (H,W) uint16 image, got {img.shape} {img.dtype}")
+    h, w = img.shape
+    rows = np.zeros((h, 2 * w + 1), dtype=np.uint8)  # filter type 0 before each row
+    rows[:, 1:] = img.astype(">u2").view(np.uint8).reshape(h, 2 * w)
+    _write(path, w, h, 16, 0, rows)
 
 
 def write_png_gray8(path, img):

@@ -1,9 +1,10 @@
-"""Offline demo-scene reader.
+"""Scene readers: offline demo-scene replay and live Azure-Kinect capture.
 
-Port of `sixdof_tpu/io/readers.py::DataReader`: the colour intrinsics,
-colour/depth frames, the first-frame mask and the annotated poses (the pose
-path), and the per-scene ICP parameters, camera extrinsics, scene clouds,
-CAD mesh and defect heatmap (the capture path), of a scene laid out as
+Port of `sixdof_tpu/io/readers.py`.  `DataReader` replays a recorded
+scene: the colour intrinsics, colour/depth frames, the first-frame mask and
+the annotated poses (the pose path), and the per-scene ICP parameters,
+camera extrinsics, scene clouds, CAD mesh and defect heatmap (the capture
+path), of a scene laid out as
 
   configs/{camera_intrinsics,camera_extrinsics,icp_parameters}.json
   rgb/rgb_*.png  depth/depth_*.png (mm uint16)  pcd/cloud_*.ply
@@ -11,10 +12,13 @@ CAD mesh and defect heatmap (the capture path), of a scene laid out as
   mesh/{model.obj, model.ply}  heatmap/0002.npy
 
 PNG decoding is `io/png.py`, and resizing, the grey conversion, Otsu's
-threshold and the morphology of the auto-mask reimplement OpenCV's rules in
-numpy, so no OpenCV is needed.  Frame i+1 is decoded on a background thread
-while frame i is in use, as the JAX reader does.  The live Kinect reader is
-not ported.
+threshold, the morphology of the auto-mask and the Gaussian blur
+reimplement OpenCV's rules in numpy, so no OpenCV is needed.  Frame i+1 is
+decoded on a background thread while frame i is in use, as the JAX reader
+does.  `KinectReader` (and `YcbineoatReader`, its variant with a Gaussian
+heatmap) read the live camera through `pykinect_azure`, imported when one
+is built; the scene directory then holds the configs, mesh, background and
+heatmap.
 """
 from __future__ import annotations
 
@@ -23,15 +27,17 @@ import json
 import logging
 import math
 import os
+import sys
 import threading
+import time
 
 import numpy as np
 from scipy import ndimage
 
 from ..app.defect_projection import PinholeCameraIntrinsic, load_extrinsics
 from ..config import IcpConfig
-from .mesh_io import load_mesh, load_point_cloud
-from .png import read_png, write_png_gray8
+from .mesh_io import PointCloud, load_mesh, load_point_cloud, save_point_cloud
+from .png import read_png, write_png_gray8, write_png_gray16, write_png_rgb8
 
 
 def resize_nearest(img, width, height):
@@ -255,17 +261,171 @@ def otsu_mask(color):
     border never wins a min or a max.  Returns 0/255 uint8."""
     gray = bgr_to_gray(color)
     refined = np.where(gray > otsu_threshold(gray), 0, 255).astype(np.uint8)
-
-    def erode(x):
-        return ndimage.minimum_filter(x, size=5, mode="constant", cval=255)
-
-    def dilate(x):
-        return ndimage.maximum_filter(x, size=5, mode="constant", cval=0)
-
-    return erode(dilate(dilate(erode(refined))))
+    return erode5(dilate5(dilate5(erode5(refined))))
 
 
-class DataReader:
+def erode5(img):
+    """``cv2.erode`` of a uint8 image by a full 5x5 kernel (OpenCV's default
+    border never wins the min)."""
+    return ndimage.minimum_filter(img, size=5, mode="constant", cval=255)
+
+
+def dilate5(img):
+    """``cv2.dilate`` of a uint8 image by a full 5x5 kernel (OpenCV's
+    default border never wins the max)."""
+    return ndimage.maximum_filter(img, size=5, mode="constant", cval=0)
+
+
+def write_color_png(path, img):
+    """``cv2.imwrite(path, img[..., :3])`` of a BGR or BGRA uint8 frame (the
+    alpha dropped), or of a grey one."""
+    img = np.asarray(img)
+    if img.ndim == 2:
+        write_png_gray8(path, img)
+    else:
+        write_png_rgb8(path, np.ascontiguousarray(img[..., 2::-1]))
+
+
+def _gaussian_kernel(n, sigma):
+    """OpenCV's getGaussianKernel(n, sigma) for sigma > 0, in float64:
+    exp(-(x^2) / (2 sigma^2)) at x = i - (n-1)/2, scaled by 1 / sum with the
+    sum taken as OpenCV takes it (one half doubled, plus the centre)."""
+    x = 2 * np.arange((n - 1) // 2) - (n - 1)  # OpenCV's x = 2i - (n-1), scale -1/8
+    half = np.exp((x * x).astype(np.float64) * (-0.125 / (sigma * sigma)))
+    total = 0.0
+    for t in half:  # in order, as OpenCV sums (np.sum would pair the terms)
+        total += t
+    total = total * 2.0 + 1.0
+    if n % 2 == 0:
+        total += 1.0
+    mul = 1.0 / total
+    centre = [mul] * (2 - n % 2)
+    return np.concatenate([half * mul, centre, (half * mul)[::-1]])
+
+
+def gaussian_blur(img, sigma):
+    """``cv2.GaussianBlur(img, (0, 0), sigma)`` of a float64 (H,W) image:
+    kernel size round(sigma * 8 + 1) | 1, BORDER_REFLECT_101, a row pass
+    summed tap by tap, then a column pass over symmetric pairs as OpenCV's
+    separable filter computes it."""
+    img = np.asarray(img, dtype=np.float64)
+    n = int(np.floor(sigma * 8 + 1 + 0.5)) | 1
+    k = _gaussian_kernel(n, sigma)
+    r = n // 2
+    src = np.pad(img, ((0, 0), (r, r)), mode="reflect") if img.shape[1] > 1 else \
+        np.repeat(img, n, axis=1)
+    W = img.shape[1]
+    rows = k[0] * src[:, 0:W]
+    for j in range(1, n):
+        rows = rows + k[j] * src[:, j : j + W]
+    cols = np.pad(rows, ((r, r), (0, 0)), mode="reflect") if img.shape[0] > 1 else \
+        np.repeat(rows, n, axis=0)
+    H = img.shape[0]
+    out = k[r] * cols[r : r + H]
+    for j in range(1, r + 1):
+        out = out + k[r + j] * (cols[r + j : r + j + H] + cols[r - j : r - j + H])
+    return out
+
+
+class _ReaderCommon:
+    """What the offline and the live reader share: the mask, the heatmap,
+    the ICP parameters, the extrinsics, the background cloud and the CAD
+    mesh, all read from `self.base_dir`."""
+
+    def get_mask(self, color_image=None, i=None):
+        """masks/0000.png as a (H,W) uint8 0/1 mask; where it is missing, the
+        Otsu auto-mask of @color_image, written back as masks/0000.png."""
+        path = f"{self.base_dir}/masks/0000.png"
+        if not os.path.exists(path):
+            logging.info(f"{path} not found: writing the Otsu auto-mask of the frame")
+            refined = otsu_mask(color_image)
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            write_png_gray8(path, refined)
+            return resize_nearest(refined, self.color_W, self.color_H).astype(bool).astype(
+                np.uint8)
+        mask = read_png(path)
+        if mask.ndim == 3:
+            for c in range(mask.shape[-1]):
+                if mask[..., c].sum() > 0:
+                    mask = mask[..., c]
+                    break
+        return resize_nearest(mask, self.color_W, self.color_H).astype(bool).astype(np.uint8)
+
+    def update_config(self, args):
+        """icp_parameters.json with the CLI overrides applied (CLI > JSON >
+        defaults); keeps the typed form in `icp_config` and returns the
+        nested dict the pipeline functions read."""
+        cfg = self.get_icp_config()
+        if args is not None:
+            cfg = cfg.apply_cli_overrides(args)
+        self.icp_config = cfg
+        return cfg.to_reference_dict()
+
+    def get_icp_config(self):
+        path = f"{self.base_dir}/configs/icp_parameters.json"
+        if os.path.exists(path):
+            return IcpConfig.from_json(path)
+        return IcpConfig()
+
+    def get_parameters(self):
+        with open(f"{self.base_dir}/configs/icp_parameters.json", "r") as f:
+            return json.load(f)
+
+    def get_extrinsics(self):
+        self.color_to_depth, self.depth_to_color = load_extrinsics(self.base_dir)
+        self.inverse_color_to_depth = np.linalg.inv(self.color_to_depth)
+        self.inverse_depth_to_color = np.linalg.inv(self.depth_to_color)
+
+    def get_background(self):
+        self.background = load_point_cloud(f"{self.base_dir}/background/box.ply")
+
+    def get_target(self):
+        """The CAD mesh in millimetres (`target_mesh`, ray-traced) and its
+        point cloud (`target`, the ICP target)."""
+        self.target_mesh = load_mesh(f"{self.base_dir}/mesh/model.obj")
+        self.target_mesh.compute_vertex_normals()
+        self.target = load_point_cloud(f"{self.base_dir}/mesh/model.ply")
+
+    @staticmethod
+    def scale_translation_to_millimeters(pose):
+        out = pose.copy()
+        out[:3, -1] *= 1000
+        return out
+
+    def get_heatmap(self, color_image):
+        """heatmap/0002.npy normalised to [0,1], resized to the colour frame's
+        shorter native side (OpenCV's INTER_LINEAR) and centred on a float64
+        canvas of the native colour size; and the crop of @color_image that
+        the heatmap covers (INTER_AREA to the heatmap's scale, a centre crop,
+        INTER_NEAREST to the same side), which the overlay blends with it.
+        Returns (heatmap_full (H0,W0) float64, color_original, heatmap_vis
+        float32, color_original)."""
+        heatmap_data = np.load(f"{self.base_dir}/heatmap/0002.npy")
+        heatmap_size = heatmap_data.shape[0]
+        scale = heatmap_size / min(color_image.shape[:2])
+        new_height = int(color_image.shape[0] * scale)
+        new_width = int(color_image.shape[1] * scale)
+        color_resized = resize_area(color_image, new_width, new_height)
+        start_y = (new_height - heatmap_size) // 2
+        start_x = (new_width - heatmap_size) // 2
+        color_cropped = color_resized[start_y : start_y + heatmap_size,
+                                      start_x : start_x + heatmap_size]
+        heatmap = heatmap_data - np.min(heatmap_data)
+        heatmap = heatmap / np.max(heatmap)
+        H0 = int(self.color_H / self.downscale)
+        W0 = int(self.color_W / self.downscale)
+        output_size = min(H0, W0)
+        heatmap_vis = resize_linear(heatmap, output_size, output_size)
+        color_original = resize_nearest(color_cropped, output_size, output_size)
+        heatmap_full = np.zeros((H0, W0))
+        y_start = (H0 - output_size) // 2
+        x_start = (W0 - output_size) // 2
+        heatmap_full[y_start : y_start + output_size,
+                     x_start : x_start + output_size] = heatmap_vis
+        return heatmap_full, color_original, heatmap_vis, color_original
+
+
+class DataReader(_ReaderCommon):
     """Offline demo-data replay (reference datareader.py:508-792)."""
 
     def __init__(self, base_dir, shorter_side=None, zfar=np.inf, arguments=None):
@@ -379,102 +539,206 @@ class DataReader:
         depth[(depth < 0.001) | (depth >= self.zfar)] = 0
         return depth
 
-    def get_mask(self, color_image=None, i=None):
-        """masks/0000.png as a (H,W) uint8 0/1 mask; where it is missing, the
-        Otsu auto-mask of @color_image, written back as masks/0000.png."""
-        path = f"{self.base_dir}/masks/0000.png"
-        if not os.path.exists(path):
-            logging.info(f"{path} not found: writing the Otsu auto-mask of the frame")
-            refined = otsu_mask(color_image)
-            os.makedirs(os.path.dirname(path), exist_ok=True)
-            write_png_gray8(path, refined)
-            return resize_nearest(refined, self.color_W, self.color_H).astype(bool).astype(
-                np.uint8)
-        mask = read_png(path)
-        if mask.ndim == 3:
-            for c in range(mask.shape[-1]):
-                if mask[..., c].sum() > 0:
-                    mask = mask[..., c]
-                    break
-        return resize_nearest(mask, self.color_W, self.color_H).astype(bool).astype(np.uint8)
-
-    # ------------------------------------------------ capture-path inputs --
-
-    def update_config(self, args):
-        """icp_parameters.json with the CLI overrides applied (CLI > JSON >
-        defaults); keeps the typed form in `icp_config` and returns the
-        nested dict the pipeline functions read."""
-        cfg = self.get_icp_config()
-        if args is not None:
-            cfg = cfg.apply_cli_overrides(args)
-        self.icp_config = cfg
-        return cfg.to_reference_dict()
-
-    def get_icp_config(self):
-        path = f"{self.base_dir}/configs/icp_parameters.json"
-        if os.path.exists(path):
-            return IcpConfig.from_json(path)
-        return IcpConfig()
-
-    def get_parameters(self):
-        with open(f"{self.base_dir}/configs/icp_parameters.json", "r") as f:
-            return json.load(f)
-
-    def get_extrinsics(self):
-        self.color_to_depth, self.depth_to_color = load_extrinsics(self.base_dir)
-        self.inverse_color_to_depth = np.linalg.inv(self.color_to_depth)
-        self.inverse_depth_to_color = np.linalg.inv(self.depth_to_color)
-
-    def get_background(self):
-        self.background = load_point_cloud(f"{self.base_dir}/background/box.ply")
-
-    def get_target(self):
-        """The CAD mesh in millimetres (`target_mesh`, ray-traced) and its
-        point cloud (`target`, the ICP target)."""
-        self.target_mesh = load_mesh(f"{self.base_dir}/mesh/model.obj")
-        self.target_mesh.compute_vertex_normals()
-        self.target = load_point_cloud(f"{self.base_dir}/mesh/model.ply")
-
     def get_source(self, i=0):
         """The scene cloud of frame i (pcd/cloud_*.ply, depth camera, mm)."""
         pcd_path = (self.color_files[i].replace("/rgb/", "/pcd/").replace(".png", ".ply")
                     .replace("/rgb_", "/cloud_"))
         return load_point_cloud(pcd_path)
 
-    @staticmethod
-    def scale_translation_to_millimeters(pose):
-        out = pose.copy()
-        out[:3, -1] *= 1000
-        return out
+    def get_video_name(self):
+        return self.base_dir.split("/")[-1]
 
-    def get_heatmap(self, color_image):
-        """heatmap/0002.npy normalised to [0,1], resized to the colour frame's
-        shorter native side (OpenCV's INTER_LINEAR) and centred on a float64
-        canvas of the native colour size; and the crop of @color_image that
-        the heatmap covers (INTER_AREA to the heatmap's scale, a centre crop,
-        INTER_NEAREST to the same side), which the overlay blends with it.
-        Returns (heatmap_full (H0,W0) float64, color_original, heatmap_vis
-        float32, color_original)."""
-        heatmap_data = np.load(f"{self.base_dir}/heatmap/0002.npy")
-        heatmap_size = heatmap_data.shape[0]
-        scale = heatmap_size / min(color_image.shape[:2])
-        new_height = int(color_image.shape[0] * scale)
-        new_width = int(color_image.shape[1] * scale)
-        color_resized = resize_area(color_image, new_width, new_height)
-        start_y = (new_height - heatmap_size) // 2
-        start_x = (new_width - heatmap_size) // 2
-        color_cropped = color_resized[start_y : start_y + heatmap_size,
-                                      start_x : start_x + heatmap_size]
-        heatmap = heatmap_data - np.min(heatmap_data)
-        heatmap = heatmap / np.max(heatmap)
-        H0 = int(self.color_H / self.downscale)
-        W0 = int(self.color_W / self.downscale)
-        output_size = min(H0, W0)
-        heatmap_vis = resize_linear(heatmap, output_size, output_size)
-        color_original = resize_nearest(color_cropped, output_size, output_size)
-        heatmap_full = np.zeros((H0, W0))
-        y_start = (H0 - output_size) // 2
-        x_start = (W0 - output_size) // 2
-        heatmap_full[y_start : y_start + output_size,
-                     x_start : x_start + output_size] = heatmap_vis
-        return heatmap_full, color_original, heatmap_vis, color_original
+    def get_xyz_map(self, i=0):
+        """Frame i's depth as a (H,W,3) float32 camera-frame xyz map."""
+        import torch
+
+        from ..ops.geometry import depth2xyzmap
+
+        return depth2xyzmap(torch.as_tensor(self.get_depth(i), dtype=torch.float32),
+                            torch.as_tensor(self.color_K, dtype=torch.float32)).numpy()
+
+    def update(self):
+        """A recorded scene has no camera to poll."""
+
+    def stop_camera(self):
+        """A recorded scene has no camera to stop."""
+
+
+class KinectReader(_ReaderCommon):
+    """Live Azure-Kinect capture through `pykinect_azure` (BGRA32 colour at
+    720p, NFOV 2x2-binned depth), imported when the reader is built: without
+    it, building one raises.  Each `update()` grabs a frame, retrying until
+    the colour, depth and point cloud all arrive; the getters serve the last
+    frame.  @capture_background: capture the empty scene's cloud at start
+    (after a countdown) and save it as background/box.ply, else read that
+    file."""
+
+    COLOR_RESOLUTIONS = {1: (1280, 720), 2: (1920, 1080), 3: (2560, 1440),
+                         4: (2048, 1536), 5: (3840, 2160), 6: (4096, 3072)}
+    DEPTH_MODES = {1: (320, 288), 2: (640, 576), 3: (512, 512), 4: (1024, 1024),
+                   5: (1024, 1024)}
+
+    def __init__(self, base_dir, capture_background=False, shorter_side=None, zfar=np.inf,
+                 arguments=None):
+        try:
+            import pykinect_azure as pykinect
+        except ImportError as e:
+            raise RuntimeError("KinectReader requires pykinect_azure (live capture); use "
+                               "DataReader for recorded scenes") from e
+        self._pykinect = pykinect
+        pykinect.initialize_libraries()
+        self.base_dir = base_dir
+        self.zfar = zfar
+        self.file_id = 0
+        self.parameters = self.update_config(arguments)
+        self.device, self.device_config = self.initialize()
+        self.get_intrinsics()
+        self.get_extrinsics()
+        if shorter_side is None:
+            shorter_side = min(self.color_H, self.color_W, self.depth_H, self.depth_W)
+        self.downscale = shorter_side / min(self.color_H, self.color_W)
+        self.color_H = int(self.color_H * self.downscale)
+        self.color_W = int(self.color_W * self.downscale)
+        self.color_K = np.array(self.color_K)
+        self.depth_K = np.array(self.depth_K)
+        self.color_K[:2] *= self.downscale
+        self.depth_K[:2] *= self.downscale
+        self.last_color = None
+        self.last_depth = None
+        self.last_points = None
+        if capture_background:
+            self.background = self.capture_new_background()
+        else:
+            self.get_background()
+        self.get_target()
+
+    def initialize(self):
+        pykinect = self._pykinect
+        device_config = pykinect.default_configuration
+        device_config.color_format = pykinect.K4A_IMAGE_FORMAT_COLOR_BGRA32
+        device_config.color_resolution = pykinect.K4A_COLOR_RESOLUTION_720P
+        device_config.depth_mode = pykinect.K4A_DEPTH_MODE_NFOV_2X2BINNED
+        device = pykinect.start_device(config=device_config)
+        time.sleep(1)
+        return device, device_config
+
+    def stop_camera(self):
+        self.device.stop_cameras()
+        self.device.close()
+
+    def get_video_name(self):
+        return "KinectLiveStream"
+
+    def __len__(self):
+        return sys.maxsize  # a live stream has no end; len() must be an int
+
+    def get_gt_pose(self, i=None):
+        logging.info("GT pose not available for live data")
+        return None
+
+    def update(self):
+        self.last_color, self.last_depth, self.last_points = self.capture_frame()
+        self.file_id += 1
+
+    def get_intrinsics(self):
+        calibration = self.device.get_calibration(self.device_config.depth_mode,
+                                                  self.device_config.color_resolution)
+        dp, cp = calibration.depth_params, calibration.color_params
+        self.depth_K = [[dp.fx, 0, dp.cx], [0, dp.fy, dp.cy], [0, 0, 1]]
+        self.color_K = [[cp.fx, 0, cp.cx], [0, cp.fy, cp.cy], [0, 0, 1]]
+        cw, ch = self.COLOR_RESOLUTIONS[self.device_config.color_resolution]
+        dw, dh = self.DEPTH_MODES[self.device_config.depth_mode]
+        self.color_W, self.color_H = cw, ch
+        self.depth_W, self.depth_H = dw, dh
+        # the defect rays use the colour camera at its native size
+        self.color_pinhole = PinholeCameraIntrinsic.from_params(cw, ch, cp.fx, cp.fy, cp.cx, cp.cy)
+
+    def get_color(self, i=None):
+        """The last frame as (H,W,3) uint8 RGB, or None before the first."""
+        if self.last_color is None:
+            logging.warning("No color image captured yet.")
+            return None
+        rgb = np.ascontiguousarray(self.last_color[..., 2::-1])  # BGR(A) -> RGB
+        return resize_nearest(rgb, self.color_W, self.color_H)
+
+    def get_depth(self, i=None):
+        """The last depth frame in metres (float32), or None."""
+        if self.last_depth is None:
+            logging.warning("No depth image captured yet.")
+            return None
+        depth = self.last_depth.astype(np.float32) / 1e3
+        depth = resize_nearest(depth, self.color_W, self.color_H)
+        depth[(depth < 0.001) | (depth >= self.zfar)] = 0
+        return depth
+
+    def get_source(self, i=None):
+        """The last frame's point cloud (depth camera, mm), or None."""
+        if self.last_points is None:
+            logging.warning("No point cloud captured yet.")
+            return None
+        return PointCloud(self.last_points)
+
+    def capture_frame(self):
+        capture = self.device.update()
+        ret_depth, depth_image = capture.get_depth_image()
+        ret_color, color_image = capture.get_color_image()
+        ret_points, points = capture.get_pointcloud()
+        while not ret_color or not ret_depth or not ret_points:
+            logging.error("Failed to get image or point cloud.")
+            capture = self.device.update()
+            ret_depth, depth_image = capture.get_depth_image()
+            ret_color, color_image = capture.get_color_image()
+            ret_points, points = capture.get_pointcloud()
+        return color_image, depth_image, points
+
+    def capture_new_background(self):
+        logging.info("Please make sure the scene is empty.")
+        self.countdown(5, message="Capturing background in")
+        _, _, points = self.capture_frame()
+        background = PointCloud(points)
+        save_path = f"{self.base_dir}/background/box.ply"
+        os.makedirs(os.path.dirname(save_path), exist_ok=True)
+        save_point_cloud(save_path, background)
+        logging.info(f"Background point cloud captured and saved to {save_path}")
+        logging.info("Please put the object in the Box.")
+        self.countdown(5, message="Capturing object in")
+        return background
+
+    def countdown(self, seconds, message=""):
+        for i in range(seconds, 0, -1):
+            print(f"{message} {i} seconds...")
+            time.sleep(1)
+        print("Capturing now...")
+
+    def save_intrinsics(self, save_dir):
+        intrinsics = {
+            "depth": {"fx": self.depth_K[0][0], "fy": self.depth_K[1][1],
+                      "cx": self.depth_K[0][2], "cy": self.depth_K[1][2],
+                      "width": self.depth_W, "height": self.depth_H},
+            "color": {"fx": self.color_K[0][0], "fy": self.color_K[1][1],
+                      "cx": self.color_K[0][2], "cy": self.color_K[1][2],
+                      "width": self.color_W, "height": self.color_H},
+        }
+        path = os.path.join(save_dir, "camera_intrinsics.json")
+        with open(path, "w") as f:
+            json.dump(intrinsics, f, indent=4)
+        logging.info(f"Intrinsic parameters saved to {path}")
+
+    def save_frame(self, color_image, depth_image, point_cloud, save_dir, frame_id):
+        """rgb_<id>.png (the BGR(A) frame as an RGB PNG, alpha dropped),
+        depth_<id>.png (16-bit mm) and cloud_<id>.ply in @save_dir."""
+        write_color_png(os.path.join(save_dir, f"rgb_{frame_id:03d}.png"), color_image)
+        write_png_gray16(os.path.join(save_dir, f"depth_{frame_id:03d}.png"),
+                         np.asarray(depth_image))
+        save_point_cloud(os.path.join(save_dir, f"cloud_{frame_id:03d}.ply"),
+                         PointCloud(point_cloud))
+
+
+class YcbineoatReader(KinectReader):
+    """The live reader with a Gaussian heatmap at the frame's centre in
+    place of heatmap/0002.npy."""
+
+    def get_heatmap(self, color, max_intensity=1.0, sigma=50):
+        from ..app.defect_projection import generate_centered_heatmap
+
+        return generate_centered_heatmap(color.shape[:2], max_intensity, sigma)

@@ -70,3 +70,10 @@ def bilateral_filter_depth(depth, radius=2, zfar=100.0, sigma_d=2.0, sigma_r=100
     sum_w = _seq_sum(w)
     out = _seq_sum(w * win0) / torch.clamp(sum_w, min=1e-12)
     return torch.where((sum_w > 0) & (num_valid > 0), out, 0.0)
+
+
+def preprocess_depth(depth, radius=2, zfar=100.0):
+    """Erode, then the bilateral filter, as register and track_one apply
+    them."""
+    return bilateral_filter_depth(erode_depth(depth, radius=radius, zfar=zfar), radius=radius,
+                                  zfar=zfar)

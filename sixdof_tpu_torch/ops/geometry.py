@@ -9,6 +9,12 @@ import numpy as np
 import torch
 
 
+def to_homo(pts):
+    """(...,N,D) -> (...,N,D+1): append ones."""
+    return torch.cat([pts, torch.ones((*pts.shape[:-1], 1), dtype=pts.dtype,
+                                      device=pts.device)], dim=-1)
+
+
 def transform_pts(pts, tf):
     """@pts: (...,N,3); @tf: (...,4,4).  A batched tf gets a point axis
     inserted by RANK (tf (B,4,4) on pts (N,3) -> (B,N,3)), as in the JAX
@@ -16,6 +22,14 @@ def transform_pts(pts, tf):
     if tf.ndim >= 3 and tf.ndim >= pts.ndim:
         tf = tf[..., None, :, :]
     return (torch.matmul(tf[..., :-1, :-1], pts[..., None]) + tf[..., :-1, -1:])[..., 0]
+
+
+def transform_dirs(dirs, tf):
+    """Rotate direction vectors by the rotation block of @tf; broadcasting
+    as in transform_pts (by rank)."""
+    if tf.ndim >= 3 and tf.ndim >= dirs.ndim:
+        tf = tf[..., None, :, :]
+    return torch.matmul(tf[..., :3, :3], dirs[..., None])[..., 0]
 
 
 def depth2xyzmap(depth, K, zfar=float("inf")):
@@ -112,3 +126,51 @@ def compute_mesh_diameter(model_pts, n_sample=10000, seed=0):
         d = np.linalg.norm(pts[i : i + 2048, None] - pts[None], axis=-1)
         diameter = max(diameter, float(d.max()))
     return diameter
+
+
+def projection_matrix_from_intrinsics(K, height, width, znear, zfar, window_coords="y_down"):
+    """Hartley-Zisserman K -> 4x4 OpenGL projection (host numpy)."""
+    w, h = width, height
+    depth = float(zfar - znear)
+    q = -(zfar + znear) / depth
+    qn = -2 * (zfar * znear) / depth
+    if window_coords == "y_up":
+        row1 = [0, -2 * K[1, 1] / h, (-2 * K[1, 2] + h) / h, 0]
+    elif window_coords == "y_down":
+        row1 = [0, 2 * K[1, 1] / h, (2 * K[1, 2] - h) / h, 0]
+    else:
+        raise NotImplementedError(window_coords)
+    return np.array([[2 * K[0, 0] / w, -2 * K[0, 1] / w, (-2 * K[0, 2] + w) / w, 0], row1,
+                     [0, 0, q, qn], [0, 0, -1, 0]])
+
+
+def symmetry_tfs_from_info(info, rot_angle_discrete=5):
+    """BOP symmetry annotation (models_info.json entry) -> (S,4,4) numpy,
+    translations in metres: the identity, the discrete symmetries, then one
+    rotation every @rot_angle_discrete degrees about the first continuous
+    axis (x, y or z, the first with a positive component)."""
+    from .lie import euler_matrix
+
+    symmetry_tfs = [np.eye(4)]
+    if "symmetries_discrete" in info:
+        tfs = np.array(info["symmetries_discrete"]).reshape(-1, 4, 4).copy()
+        tfs[..., :3, 3] *= 0.001
+        symmetry_tfs = [np.eye(4)] + list(tfs)
+    if "symmetries_continuous" in info:
+        axis = np.array(info["symmetries_continuous"][0]["axis"]).reshape(3)
+        offset = info["symmetries_continuous"][0]["offset"]
+        angles = np.arange(0, 360, rot_angle_discrete) / 180.0 * np.pi
+        rxs, rys, rzs = [0], [0], [0]
+        if axis[0] > 0:
+            rxs = angles
+        elif axis[1] > 0:
+            rys = angles
+        elif axis[2] > 0:
+            rzs = angles
+        for rx in rxs:
+            for ry in rys:
+                for rz in rzs:
+                    tf = euler_matrix(rx, ry, rz)
+                    tf[:3, 3] = offset
+                    symmetry_tfs.append(tf)
+    return np.array(symmetry_tfs)

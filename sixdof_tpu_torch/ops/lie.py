@@ -84,6 +84,11 @@ def rotation_6d_to_matrix(d6):
     return torch.stack([b1, b2, b3], dim=-2)
 
 
+def matrix_to_rotation_6d(R):
+    """(...,3,3) -> (...,6): the first two rows, flattened."""
+    return torch.cat([R[..., 0, :], R[..., 1, :]], dim=-1)
+
+
 def euler_matrix(rx, ry, rz):
     """4x4 numpy rotation from static-xyz Euler angles: R = Rz @ Ry @ Rx."""
     cx, sx = np.cos(rx), np.sin(rx)
@@ -95,6 +100,13 @@ def euler_matrix(rx, ry, rz):
     out = np.eye(4)
     out[:3, :3] = Rz @ Ry @ Rx
     return out
+
+
+def rotation_geodesic_distance(R1, R2):
+    """Geodesic angle (radians) between batched rotations."""
+    m = torch.matmul(R1, R2.transpose(-1, -2))
+    cos = (m[..., 0, 0] + m[..., 1, 1] + m[..., 2, 2] - 1.0) / 2.0
+    return torch.arccos(torch.clamp(cos, -1.0, 1.0))
 
 
 def normalize_rotation(pose):

@@ -5,14 +5,17 @@ PCA normals, RANSAC plane segmentation, DBSCAN largest-cluster filter,
 statistical outlier removal, background removal and the smoothing resample.
 Host numpy/scipy code, as in the JAX package: the same seeded
 `np.random.RandomState` calls give the same clouds bit for bit.  Where the
-JAX package can call its optional native C++ library (`native/`), the port
-takes the package's own scipy path (cKDTree), which gives the same sets.
+JAX package calls its native C++ library (`native/`, loaded by default),
+the port reproduces that routine's results with scipy: DBSCAN its labels,
+border points included.
 """
 from __future__ import annotations
 
 import logging
 
 import numpy as np
+from scipy.sparse import coo_matrix
+from scipy.sparse.csgraph import connected_components
 from scipy.spatial import cKDTree
 
 from ..io.mesh_io import PointCloud
@@ -169,46 +172,47 @@ def background_removal(pcd: PointCloud, background: PointCloud, threshold=10.0) 
 
 
 def dbscan_labels(points, eps, min_points):
-    """Exact DBSCAN labels (-1 = noise).
+    """Exact DBSCAN labels (-1 = noise), as the JAX package's native routine
+    (`native/sixdof_native.cpp::dbscan`) gives them.
 
     Replaces Open3D cluster_dbscan (reference src/pose_estimation.py:283).
-    KD pair queries + union-find (the JAX package's scipy path).
+    Neighbours: d0*d0 + d1*d1 + d2*d2 <= eps*eps in float64, the point
+    itself counted; a point with at least @min_points is a core point.
+    Clusters are the components of the core points' neighbour graph,
+    numbered in order of their smallest core index (the native routine
+    seeds them in index order); a border point takes the smallest-numbered
+    cluster among its core neighbours (the first cluster to reach it).
     """
-    n = len(points)
-    tree = cKDTree(points)
-    neighbor_counts = np.array(tree.query_ball_point(points, eps, workers=-1, return_length=True))
-    core = neighbor_counts >= min_points
-
-    parent = np.arange(n)
-
-    def find(i):
-        while parent[i] != i:
-            parent[i] = parent[parent[i]]
-            i = parent[i]
-        return i
-
-    pairs = tree.query_pairs(eps, output_type="ndarray")
-    for i, j in pairs:
-        if core[i] and core[j]:
-            ri, rj = find(i), find(j)
-            if ri != rj:
-                parent[ri] = rj
-
+    pts = np.ascontiguousarray(points, dtype=np.float64)
+    n = len(pts)
     labels = np.full(n, -1, dtype=np.int64)
-    roots = {}
-    for i in range(n):
-        if core[i]:
-            r = find(i)
-            if r not in roots:
-                roots[r] = len(roots)
-            labels[i] = roots[r]
-    # border points: attach to any core neighbor's cluster
-    if len(pairs):
-        for i, j in pairs:
-            if labels[i] == -1 and core[j]:
-                labels[i] = labels[j]
-            elif labels[j] == -1 and core[i]:
-                labels[j] = labels[i]
+    if n == 0:
+        return labels
+    # candidates a hair beyond eps, then the native routine's exact test
+    pairs = cKDTree(pts).query_pairs(eps * (1 + 1e-9), output_type="ndarray")
+    d = pts[pairs[:, 0]] - pts[pairs[:, 1]]
+    pairs = pairs[d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2] <= eps * eps]
+    counts = 1 + np.bincount(pairs.ravel(), minlength=n)
+    core = counts >= min_points
+    both = pairs[core[pairs[:, 0]] & core[pairs[:, 1]]]
+    graph = coo_matrix((np.ones(len(both)), (both[:, 0], both[:, 1])), shape=(n, n))
+    _, comp = connected_components(graph, directed=False)
+    core_idx = np.flatnonzero(core)
+    if len(core_idx) == 0:
+        return labels
+    # number the components by their smallest core index
+    comp_of_core = comp[core_idx]
+    first = np.full(n, n, dtype=np.int64)
+    np.minimum.at(first, comp_of_core, core_idx)
+    labels[core_idx] = np.searchsorted(np.unique(first[comp_of_core]), first[comp_of_core])
+    # border points: the smallest label among their core neighbours
+    src = np.concatenate([pairs[:, 0], pairs[:, 1]])
+    dst = np.concatenate([pairs[:, 1], pairs[:, 0]])
+    edge = core[src] & ~core[dst]
+    border = np.full(n, np.iinfo(np.int64).max, dtype=np.int64)
+    np.minimum.at(border, dst[edge], labels[src[edge]])
+    has = border != np.iinfo(np.int64).max
+    labels[has] = border[has]
     return labels
 
 

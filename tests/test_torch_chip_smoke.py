@@ -2,8 +2,9 @@
 and K2 through their plain versions, the pose server twice on the bundled
 weights, the accuracy phase, the capture path and the run loop twice, the
 loop at --debug 2 and in viewer mode, the point-click path on a crust, the
---icp registration and the trainer) and the kernels line has the keys the
-card run reports; a phase that fails stops the script before its result."""
+--icp registration, the trainer, the BOP campaign and the live-camera loop
+against a stand-in Kinect) and the kernels line has the keys the card run
+reports; a phase that fails stops the script before its result."""
 import json
 import os
 import sys
@@ -27,11 +28,12 @@ def test_chip_smoke_rehearsal_on_cpu(capsys):
     kernels = chip_smoke.run("cpu", small=True)
     lines = [json.loads(x) for x in capsys.readouterr().out.splitlines() if x.startswith("{")]
     phases = [x.get("phase") for x in lines]
-    assert phases.count("k1") == 5 and "pose" in phases
+    assert phases.count("k1") == 7 and "pose" in phases
     assert phases.count("k2") == 4 and "capture" in phases
     assert phases.index("pose") < phases.index("accuracy") < phases.index("capture") \
         < phases.index("debug") < phases.index("viewer") < phases.index("point_click") \
-        < phases.index("icp_global") < phases.index("train_k1") < phases.index("train")
+        < phases.index("icp_global") < phases.index("train_k1") < phases.index("train") \
+        < phases.index("bop") < phases.index("live")
     assert lines[-1] == {"kernels": kernels}
     assert [k["name"] for k in kernels] == ["raster_zbuffer", "ray_mesh_intersect"]
     for k in kernels:
@@ -42,7 +44,9 @@ def test_chip_smoke_rehearsal_on_cpu(capsys):
         assert "pallas_call" in open(os.path.join(REPO, path)).read().splitlines()[int(line) - 1]
         assert k["max_abs_err"] == 0.0 and k["library_ms"] is None
     k1 = [x for x in lines if x.get("phase") == "k1"]
-    assert [x["triangles"] for x in k1] == [1280] * 4 + [5120]
+    assert [x["triangles"] for x in k1[:6]] == [1280] * 4 + [5120, 1280]
+    assert [x["shape"] for x in k1[5:]] == ["register_full_grid", "full_grid_decimated_5000"]
+    assert 0.7 * 5000 <= k1[6]["triangles"] <= 5000  # decimate_mesh's landing band
     assert all(x["tid_mismatch"] == 0 and x["max_abs_depth_err"] == 0.0 for x in k1)
     assert all(0 < x["mean_region_survivors"] <= x["mean_tile_survivors"] <= x["mean_count"]
                for x in k1)
@@ -118,6 +122,37 @@ def test_chip_smoke_rehearsal_on_cpu(capsys):
     assert training["k1_launches"] == 0  # the CPU renders through the plain raster
     assert training["checkpoint"] == {"outputs_bit_equal": True, "register_pose_finite": True}
     assert set(training["first_loss"]["refiner"]) == {"bundled", "from_scratch"}
+    # the BOP campaign: synth_box converted and run, then with its model
+    # subdivided to 20,480 triangles (decimated by the tool)
+    bop = [x for x in lines if x.get("phase") == "bop"]
+    assert [(x["name"], x["prune_to"]) for x in bop] == [
+        ("synth_box", 0), ("synth_box", 4), ("synth_box_20480", 0), ("synth_box_20480", 4)]
+    assert bop[2]["model_triangles"] == 20480
+    assert set(bop[0]["ceilings"]) == {"adds_mean_m", "rot_err_deg_mean"}
+    assert set(bop[1]["ceilings"]) == {"adds_mean_m"}
+    assert all(x["frames"] == 2 and x["registered_frames"] == 1 and x["k1_launches"] == 0
+               and set(x["jax_parity_r5"]) >= {"adds_mean_m", "adds_auc_0.1d"} for x in bop)
+    # the live loop: the background captured first, frame 0 served to the
+    # heatmap's poll and to frame 0, captures on frames 0 and 2, the same
+    # results through the plain versions
+    live = next(x for x in lines if x.get("phase") == "live")
+    assert live["served"] == ["background", 0, 0, 1, 2]
+    assert [c["frame"] for c in live["captures"]] == [0, 2] and live["background_saved"]
+    assert live["camera_stopped"] and len(live["adds_m"]) == 3
+    assert max(live["vs_plain_rot_deg"]) == 0.0 and live["capture_tf_max_abs_diff"] == 0.0
+    assert kernels[0]["launches"] == kernels[1]["launches"] == 0
+
+
+def test_bop_ceilings_are_parity_checks():
+    """The bop phase holds each scene to tools/parity_check.py's
+    THRESHOLDS."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    from tools.parity_check import THRESHOLDS
+
+    assert set(chip_smoke.BOP_CEILINGS) == set(THRESHOLDS)
+    for scene, ceilings in chip_smoke.BOP_CEILINGS.items():
+        assert ceilings == {k: THRESHOLDS[scene][k] for k in ceilings}
 
 
 def test_a_failing_phase_stops_the_script(monkeypatch, capsys):
@@ -175,3 +210,40 @@ def test_train_phase_fails_on_a_kernel_disagreement(monkeypatch):
     with pytest.raises(RuntimeError, match="trainer batches through K1 disagree"):
         chip_smoke.phase_train(torch.device("cpu"), cfg,
                                os.path.join(REPO, "demo_data", "synth_box"), small=True)
+
+
+@pytest.mark.parametrize("down_sample", [8.0, 6.0])
+def test_rehearsal_refinement_matches_jax(down_sample):
+    """The rehearsal's refine_pose_with_icp of synth_box frame 0 from the
+    annotated pose (chip_smoke._icp_parameters' cut: 1000 target points, 4
+    restarts of 5 iterations) in the port and in the JAX package, at the
+    first-frame downsample the rehearsal once used (8 mm) and the one it
+    uses (6 mm): the same fitness and transformation (1e-4, mm) at both;
+    at 8 mm the JAX package's own refinement ends below the rehearsal's
+    0.9 fitness gate, at 6 mm both clear it."""
+    sys.path.insert(0, REPO)
+    import numpy as np
+
+    import chip_smoke
+    from sixdof_tpu.app.icp_pipeline import refine_pose_with_icp as jrefine
+    from sixdof_tpu.io.readers import DataReader as JReader
+    from sixdof_tpu_torch.app.icp_pipeline import refine_pose_with_icp as trefine
+    from sixdof_tpu_torch.io.readers import DataReader as TReader
+
+    scene = os.path.join(REPO, "demo_data", "synth_box")
+    results = []
+    for reader, refine, kw in ((JReader(scene), jrefine, {}),
+                               (TReader(scene), trefine, {"device": "cpu"})):
+        params = chip_smoke._icp_parameters(reader.parameters, True)
+        params["preprocess_source"]["down_sample"] = down_sample
+        init = reader.color_to_depth @ reader.scale_translation_to_millimeters(
+            reader.get_gt_pose(0))
+        results.append(refine(reader.get_source(0), reader.target, reader.background, init,
+                              params, **kw)[1])
+    jax_res, port_res = results
+    assert abs(port_res.fitness - jax_res.fitness) <= 1e-6
+    np.testing.assert_allclose(port_res.transformation, jax_res.transformation, atol=1e-4)
+    if down_sample == 8.0:
+        assert jax_res.fitness < chip_smoke.CAPTURE_MIN_FITNESS
+    else:
+        assert min(jax_res.fitness, port_res.fitness) >= chip_smoke.CAPTURE_MIN_FITNESS

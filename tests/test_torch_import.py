@@ -23,6 +23,9 @@ import chip_smoke
 import run_torch
 sys.path.insert(0, "tools")
 import train_torch_networks
+import run_bop_torch
+import convert_scene_to_bop_torch
+run_bop_torch.main, convert_scene_to_bop_torch.main  # their imports run inside main
 bad = [n for n in sys.modules if n.split(".")[0] in {FORBIDDEN!r}]
 print("BAD", bad)
 print("N", sum(n.startswith("sixdof_tpu_torch") for n in sys.modules))
@@ -34,6 +37,9 @@ print("SLICE", all(m in sys.modules for m in ("sixdof_tpu_torch.app.web_vis",
 print("TRAINER", all(m in sys.modules for m in ("sixdof_tpu_torch.parallel.train",
                                                 "sixdof_tpu_torch.parallel.augment",
                                                 "sixdof_tpu_torch.parallel.procgen")))
+print("LIVE", all(m in sys.modules for m in ("sixdof_tpu_torch.io.bop_reader",
+                                             "sixdof_tpu_torch.io.kinect_tools",
+                                             "sixdof_tpu_torch.utils.logging_utils")))
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
@@ -45,6 +51,29 @@ print("TRAINER", all(m in sys.modules for m in ("sixdof_tpu_torch.parallel.train
     assert "CKPT True" in out.stdout  # the checkpoint loader among them
     assert "SLICE True" in out.stdout  # and the viewer, features, marching, drawings
     assert "TRAINER True" in out.stdout  # and the trainer, with the training tool
+    assert "LIVE True" in out.stdout  # the BOP reader, the Kinect tools, with their tools
+
+
+def test_bop_tools_run_without_jax_or_host_libraries(tmp_path):
+    """The converter and the BOP campaign, run on synth_box (one frame, a
+    reduced grid, on the CPU), load no forbidden module."""
+    code = f"""
+import sys
+import torch
+torch.set_num_threads(1)  # beside the suite's other workers
+sys.path.insert(0, "tools")
+import convert_scene_to_bop_torch, run_bop_torch
+scene = convert_scene_to_bop_torch.main("demo_data/synth_box", {str(tmp_path)!r})
+out = run_bop_torch.main(scene, frames=1, shorter_side=120, prune_to=4, max_hypotheses=8,
+                         device="cpu")
+print("FRAMES", out["frames"])
+print("BAD", [n for n in sys.modules if n.split(".")[0] in {FORBIDDEN!r}])
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
+                         text=True, timeout=600)
+    assert out.returncode == 0, out.stderr
+    assert "FRAMES 1" in out.stdout and "BAD []" in out.stdout, out.stdout
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
