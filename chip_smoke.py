@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port's pose server, capture path, trainer, BOP
-campaign and live-camera loop on one NVIDIA card and check them.
+campaign, live-camera loop and neural object field on one NVIDIA card and
+check them.
 
     python3 chip_smoke.py
 
@@ -104,9 +105,18 @@ non-zero without printing the final result:
            versions: the same poses (the pose phase's limits), identical
            captures, the background captured and the camera stopped; ADD-S
            against the annotated poses reported
+  field    the neural object field through tools/run_object_field_torch.py
+           on synth_box_recon (40 frames) at the JAX tool's configuration
+           (1000 steps of 2048 rays x 128 + 128 samples, a 2^22 hash table,
+           extraction at 128^3, colour, texture bake): chamfer_ok against
+           the GT mesh (at most 2 voxels), s/step, seconds a stage, peak
+           memory, final loss; 20 more steps with draws, forward+backward
+           and Adam timed apart, one under the profiler (busy share,
+           launches); frame 0 registered on the extracted mesh through K1
+           (ADD-S reported, a finite pose required)
   kernels  each kernel the run launched, with its check and numbers (K1's
-           launches: the pose, train, bop and live phases'; K2's: the run
-           loop's in capture (b), point_click's and live's)
+           launches: the pose, train, bop, live and field phases'; K2's:
+           the run loop's in capture (b), point_click's and live's)
 
 The last line is {"ok": true, "device": {...}}.  Without CUDA the script
 exits 1 before any result.  `run(device="cpu", small=True)` rehearses every
@@ -1109,9 +1119,11 @@ OVERFIT_K = [[300.0, 0, 80], [0, 300.0, 60], [0, 0, 1]]
 OVERFIT_RATIO = 0.8
 
 
-def _profiled(fn, device):
+def _profiled(fn, device, top=0, trace=None):
     """Wall ms of @fn, and where the profiler sees the card: its busy ms
-    (the kernels' device time) and the kernel launches."""
+    (the kernels' device time) and the kernel launches; with @top, the @top
+    kernels that take the most device time, each with its count; with
+    @trace, the Chrome trace written to that path."""
     import torch
 
     if device.type != "cuda":
@@ -1126,13 +1138,25 @@ def _profiled(fn, device):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    busy, launches = 0.0, 0
-    for e in prof.key_averages():
-        if getattr(e, "device_type", None) == DeviceType.CUDA:
-            busy += float(getattr(e, "self_device_time_total", 0.0)
-                          or getattr(e, "self_cuda_time_total", 0.0))
-            launches += int(e.count)
-    return dict(wall_ms=wall * 1e3, busy_ms=busy / 1e3, launches=launches)
+    if trace:
+        prof.export_chrome_trace(trace)
+
+    def device_us(e):
+        return float(getattr(e, "self_device_time_total", 0.0)
+                     or getattr(e, "self_cuda_time_total", 0.0))
+
+    # kernels only: an optimizer's user-annotation range is reported on the
+    # device too, spanning its own kernels
+    kernels = sorted((e for e in prof.key_averages()
+                      if getattr(e, "device_type", None) == DeviceType.CUDA
+                      and not getattr(e, "is_user_annotation", False)),
+                     key=device_us, reverse=True)
+    out = dict(wall_ms=wall * 1e3, busy_ms=sum(map(device_us, kernels)) / 1e3,
+               launches=sum(int(e.count) for e in kernels))
+    if top:
+        out["top"] = [{"kernel": e.key[:90], "ms": device_us(e) / 1e3, "count": int(e.count)}
+                      for e in kernels[:top]]
+    return out
 
 
 def _step_times(trainers, n, gen, device):
@@ -1406,10 +1430,14 @@ def phase_bop(device, small, refiner, scorer):
     ceiling at both settings, the rotation error on the full grid (pruned
     to 64 after two coarse iterations, the cascade keeps the 180-degree
     flip of the symmetric clutter object on synth_clutter and its sensor
-    twin, as the JAX package does, and on synth_occl the port's bf16
-    arithmetic misses the pose the JAX package's finds, ADD-S intact;
-    tools/bop_jax_reference.py gives the JAX package's numbers); K1
-    launches and seconds a run."""
+    twin, as the JAX package does, and on synth_occl the prune cuts where
+    neighbouring coarse scores lie closer together than bf16 rounding moves
+    them, so rounding decides which hypotheses survive and whether tracking
+    recovers from frame 0's pose, in the JAX package as in the port:
+    tools/bf16_prune_sensitivity.py; tools/bop_jax_reference.py gives the
+    JAX package's numbers); K1 launches, seconds and frame 0's pose a run
+    (tools/bf16_prune_sensitivity.py --frame0_from replays the JAX package's
+    campaign from it)."""
     import shutil
 
     from sixdof_tpu_torch.io.mesh_io import load_mesh, save_mesh
@@ -1437,12 +1465,13 @@ def phase_bop(device, small, refiner, scorer):
             save_mesh(model, fine)
             triangles = len(fine.faces)
         for prune_to in (0, 4 if small else 64):
+            poses = []
             with _small_engine(small):
                 _sync(device)
                 rasterize_zbuffer.launches = 0
                 t0 = time.perf_counter()
                 out = run_bop_torch.main(bop_scene, device=device, refiner=refiner,
-                                         scorer=scorer, prune_to=prune_to, **kw)
+                                         scorer=scorer, prune_to=prune_to, poses=poses, **kw)
                 _sync(device)
                 seconds = time.perf_counter() - t0
             k1 = rasterize_zbuffer.launches
@@ -1455,7 +1484,7 @@ def phase_bop(device, small, refiner, scorer):
                        jax_parity_r5={k: ref[k] for k in ("adds_mean_m", "add_mean_m",
                                                           "adds_auc_0.1d", "rot_err_deg_mean",
                                                           "t_err_m_mean")},
-                       ceilings=gated)
+                       ceilings=gated, frame0_pose=poses[0].tolist() if poses else None)
             emit({"phase": "bop", **res})
             results.append(res)
             breaches += [f"{name} (prune_to {prune_to}): {k}={out[k]:.4g} > {c}"
@@ -1606,6 +1635,107 @@ def phase_live(device, cfg, scene, small, refiner, scorer):
                            f"disagree: rot {rot} deg, trans {trans} m, {res}")
     return dict(k1_launches=kern["k1_launches"], k2_launches=kern["k2_launches"])
 
+FIELD_SCENE = os.path.join(REPO, "demo_data", "synth_box_recon")
+# the field's steps timed apart (draw, forward+backward, Adam) after the fit
+FIELD_SPLIT_STEPS = 20
+
+
+def phase_field(device, cfg, small, refiner, scorer):
+    """The neural object field on synth_box_recon (40 frames at 640x480,
+    annotated poses, per-frame masks) through tools/run_object_field_torch.py
+    at the JAX tool's configuration (ObjectFieldConfig(): 1000 steps of 2048
+    rays x 128 + 128 samples, Adam 0.01; HashGridSpec(): 16 levels, a 2^22
+    table; extraction at 128^3, colour, texture bake): chamfer_ok against
+    mesh/model_scaled_down.obj (at most 2 of the engine's voxels), s/step
+    and the seconds of each stage, peak memory, the final loss; then 20
+    more steps with the draws, forward+backward and Adam timed apart, and
+    one under the profiler (busy share, launches); then frame 0 registered
+    on the extracted mesh (decimated to 5000 triangles, as the BOP tool
+    decimates a model) through K1: ADD-S against the annotated pose, K1
+    launches, a finite pose required."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from sixdof_tpu_torch.estimater import FoundationPose
+    from sixdof_tpu_torch.io.mesh_io import decimate_mesh, load_mesh
+    from sixdof_tpu_torch.io.readers import DataReader
+    from sixdof_tpu_torch.kernels.raster import rasterize_zbuffer
+    from sixdof_tpu_torch.metrics import adds_err
+    from sixdof_tpu_torch.models.object_field import HashGridSpec, ObjectFieldConfig
+
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    import profile_torch_field
+    import run_object_field_torch
+
+    out = os.path.join(REPO, "build", "chip_smoke", "field")
+    if small:  # the CPU rehearsal: 4 frames, 10 steps, a tiny grid
+        fcfg = ObjectFieldConfig(n_step=10, n_rand=64, n_samples=8, n_samples_around_depth=8)
+        spec = HashGridSpec(n_levels=4, base_res=4, finest_res=16, log2_hashmap_size=12)
+        resolution, frames = 32, 4
+    else:
+        fcfg, spec, resolution, frames = ObjectFieldConfig(), HashGridSpec(), 128, None
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):  # the tool's indented JSON
+        result, runner = run_object_field_torch.main(
+            FIELD_SCENE, os.path.join(out, "model_free.obj"), steps=fcfg.n_step,
+            resolution=resolution, device=device, ckpt_dir=os.path.join(out, "field_ckpt"),
+            cfg=fcfg, spec=spec, max_frames=frames)
+    _sync(device)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
+    split = profile_torch_field.step_split(runner, device, 2 if small else FIELD_SPLIT_STEPS)
+    prof = _profiled(lambda: runner.step(runner.draw()), device)
+
+    # frame 0 registered on the extracted mesh through K1
+    reader = DataReader(FIELD_SCENE, shorter_side=cfg.shorter_side)
+    mesh = load_mesh(result["mesh"])
+    if len(mesh.faces) > 5000:
+        mesh = decimate_mesh(mesh, target_tris=5000)
+    est = FoundationPose(model_pts=mesh.vertices, model_normals=mesh.vertex_normals, mesh=mesh,
+                         scorer=scorer, refiner=refiner, device=device, prune_to=cfg.prune_to,
+                         coarse_hw=cfg.coarse_hw)
+    if small:
+        est.rot_grid = est.rot_grid[:: len(est.rot_grid) // 8][:8]
+    color, depth = reader.get_color(0), reader.get_depth(0)
+    _sync(device)
+    rasterize_zbuffer.launches = 0
+    t1 = time.perf_counter()
+    pose = est.register(K=reader.color_K, rgb=color, depth=depth,
+                        ob_mask=reader.get_mask(color, 0).astype(bool),
+                        iteration=cfg.est_refine_iter)
+    _sync(device)
+    register_s = time.perf_counter() - t1
+    k1 = rasterize_zbuffer.launches
+    gt = load_mesh(os.path.join(FIELD_SCENE, "mesh", "model_scaled_down.obj")).vertices
+
+    res = dict(result, wall_s=wall, train_s_exact=runner.train_seconds,
+               s_per_step=runner.train_seconds / fcfg.n_step,
+               stage_seconds=runner.stage_seconds, peak_memory_gb=None if peak is None
+               else peak / 1e9, final_loss_exact=runner.final_loss,
+               chamfer_mm=result.get("chamfer_m", float("nan")) * 1e3,
+               rays=int(runner.rays.shape[0]), frames=int(len(runner.poses_normalized)),
+               table_mb=runner.params.table.numel() * 4 / 1e6,
+               draw_ms=float(np.mean(split[0])), forward_backward_ms=float(np.mean(split[1])),
+               adam_ms=float(np.mean(split[2])), step_profile=prof,
+               register_triangles=int(len(mesh.faces)), register_s=register_s,
+               register_k1_launches=k1, register_adds_m=adds_err(pose, reader.get_gt_pose(0), gt),
+               register_pose_finite=bool(np.isfinite(pose).all()))
+    emit({"phase": "field", **res})
+    if "texture_error" in result or not result["n_vertices"]:
+        raise RuntimeError(f"the field campaign did not write its meshes: {result}")
+    if not np.isfinite(runner.final_loss) or not res["register_pose_finite"]:
+        raise RuntimeError(f"the field's loss or the pose on its mesh is not finite: {res}")
+    if not small and not result["chamfer_ok"]:
+        raise RuntimeError(f"the fitted field's mesh is {res['chamfer_mm']:.3f} mm from the GT "
+                           f"mesh, over 2 voxels ({result['vox_size_m'] * 2e3:.3f} mm)")
+    if device.type == "cuda" and k1 == 0:
+        raise RuntimeError("registering on the field's mesh did not launch raster kernel K1")
+    return dict(launches=k1)
+
 
 def _rot_deg(R1, R2):
     """Rotation angle between R1 and R2 from the chord ||R1 - R2||_F
@@ -1732,6 +1862,8 @@ def run(device="cuda", small=False):
     # the BOP campaign on every 6-frame demo scene, and the live-camera loop
     bop = phase_bop(dev, small, refiner, scorer)
     live = phase_live(dev, cfg, scene, small, refiner, scorer)
+    # the neural object field: a fit, its mesh, and a register on that mesh
+    field = phase_field(dev, cfg, small, refiner, scorer)
 
     main_shape = k1[0]
     kernels = [{
@@ -1739,7 +1871,7 @@ def run(device="cuda", small=False):
         "source": "sixdof_tpu_torch/csrc/raster_zbuffer.cu",
         "replaces": "sixdof_tpu/ops/pallas/raster_kernel.py:188",
         "launches": kern["launches"] + train["launches"] + bop["launches"]
-        + live["k1_launches"],
+        + live["k1_launches"] + field["launches"],
         "max_abs_err": max(r["max_abs_depth_err"] for r in k1 + train["k1"]),
         "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"], "bound_by": main_shape["bound_by"],

@@ -20,7 +20,11 @@ heads).
 Numerics follow the JAX modules: attention is matmul + fp32 softmax, the
 LayerNorms use epsilon 1e-6 (flax's default) and compute in fp32, and the
 output heads (trans/rot/score linears) run in fp32 outside autocast.  Under
-bf16 autocast everything else runs in bf16, as `compute_dtype=bf16` does.
+bf16 autocast everything else runs in bf16, as `compute_dtype=bf16` does,
+and rounds where flax rounds: a convolution or linear layer rounds its
+product to bf16 and then adds its bf16 bias (a second rounding), where
+autocast alone would fuse the bias into the fp32 accumulator; attention
+divides by sqrt(head dim) rounded to bf16, as JAX's weak-typed scalar is.
 """
 from __future__ import annotations
 
@@ -48,11 +52,44 @@ def _position_embedding(n_tokens, d_model, device):
     return torch.as_tensor(pe, device=device)
 
 
+def _bf16_autocast(x):
+    """True under bf16 autocast on @x's device."""
+    dev = x.device.type
+    return torch.is_autocast_enabled(dev) and torch.get_autocast_dtype(dev) == torch.bfloat16
+
+
+def _linear(x, weight, bias):
+    """F.linear; under bf16 autocast the product is rounded before the bias
+    is added in bf16, as flax's `nn.Dense(dtype=bfloat16)` computes it."""
+    if _bf16_autocast(x):
+        return F.linear(x, weight) + bias.to(torch.bfloat16)
+    return F.linear(x, weight, bias)
+
+
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d rounding as flax's `nn.Conv(dtype=bfloat16)` under bf16
+    autocast (product, then the bf16 bias); unchanged otherwise."""
+
+    def forward(self, x):
+        if _bf16_autocast(x):
+            return self._conv_forward(x, self.weight, None) + \
+                self.bias.to(torch.bfloat16)[:, None, None]
+        return super().forward(x)
+
+
+class Linear(nn.Linear):
+    """nn.Linear rounding as flax's `nn.Dense(dtype=bfloat16)` under bf16
+    autocast; unchanged otherwise."""
+
+    def forward(self, x):
+        return _linear(x, self.weight, self.bias)
+
+
 class ConvReLU(nn.Module):
     def __init__(self, c_in, c_out, kernel_size=3, stride=1):
         super().__init__()
         pad = (kernel_size - 1) // 2
-        self.net = nn.Sequential(nn.Conv2d(c_in, c_out, kernel_size, stride, pad), nn.ReLU())
+        self.net = nn.Sequential(Conv2d(c_in, c_out, kernel_size, stride, pad), nn.ReLU())
 
     def forward(self, x):
         return self.net(x)
@@ -61,8 +98,8 @@ class ConvReLU(nn.Module):
 class ResnetBasicBlock(nn.Module):
     def __init__(self, planes):
         super().__init__()
-        self.conv1 = nn.Conv2d(planes, planes, 3, 1, 1)
-        self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1)
+        self.conv1 = Conv2d(planes, planes, 3, 1, 1)
+        self.conv2 = Conv2d(planes, planes, 3, 1, 1)
 
     def forward(self, x):
         out = F.relu(self.conv1(x))
@@ -77,16 +114,18 @@ class MultiheadAttention(nn.Module):
         self.num_heads = num_heads
         self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim, embed_dim))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim))
-        self.out_proj = nn.Linear(embed_dim, embed_dim)
+        self.out_proj = Linear(embed_dim, embed_dim)
         nn.init.xavier_uniform_(self.in_proj_weight)
 
     def forward(self, x):
         B, N, D = x.shape
         H = self.num_heads
         hd = D // H
-        qkv = F.linear(x, self.in_proj_weight, self.in_proj_bias)
+        qkv = _linear(x, self.in_proj_weight, self.in_proj_bias)
         q, k, v = (t.reshape(B, N, H, hd).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
-        attn = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(hd)
+        attn = torch.matmul(q, k.transpose(-1, -2))
+        # the scale in the product's dtype, as JAX casts a Python scalar
+        attn = attn / torch.tensor(math.sqrt(hd), dtype=attn.dtype)
         attn = attn.float().softmax(dim=-1).to(v.dtype)
         out = torch.matmul(attn, v).transpose(1, 2).reshape(B, N, D)
         return self.out_proj(out)
@@ -117,8 +156,8 @@ class TransformerEncoderLayer(nn.Module):
     def __init__(self, d_model, nhead, dim_feedforward=512):
         super().__init__()
         self.self_attn = MultiheadAttention(d_model, nhead)
-        self.linear1 = nn.Linear(d_model, dim_feedforward)
-        self.linear2 = nn.Linear(dim_feedforward, d_model)
+        self.linear1 = Linear(d_model, dim_feedforward)
+        self.linear2 = Linear(dim_feedforward, d_model)
         self.norm1 = LayerNorm32(d_model)
         self.norm2 = LayerNorm32(d_model)
 

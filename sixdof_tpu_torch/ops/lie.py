@@ -1,6 +1,7 @@
 """Closed-form SO(3) maps and rotation representations.
 
-Port of `sixdof_tpu/ops/lie.py` (the pieces the pose path uses): batched
+Port of `sixdof_tpu/ops/lie.py` (the pieces the pose path and the neural
+object field use): batched
 over leading dims, with the same series fallbacks near the identity and the
 same axis recovery near theta = pi.
 """
@@ -87,6 +88,31 @@ def rotation_6d_to_matrix(d6):
 def matrix_to_rotation_6d(R):
     """(...,3,3) -> (...,6): the first two rows, flattened."""
     return torch.cat([R[..., 0, :], R[..., 1, :]], dim=-1)
+
+
+def se3_exp_map(log_tf):
+    """(...,6) [trans | rot] twist -> (...,4,4) homogeneous transforms."""
+    v, w = log_tf[..., :3], log_tf[..., 3:]
+    theta2 = torch.sum(w * w, dim=-1)
+    th2s = torch.clamp(theta2, min=_EPS)  # safe denominator (see so3_exp_map)
+    theta = torch.sqrt(th2s)
+    small = theta2 > _EPS
+    K = hat(w)
+    KK = K @ K
+    sin_t_t = torch.where(small, torch.sin(theta) / theta, 1.0 - theta2 * (1.0 / 6.0))
+    one_m_cos_t2 = torch.where(small, (1.0 - torch.cos(theta)) / th2s,
+                               0.5 - theta2 * (1.0 / 24.0))
+    t_m_sin_t3 = torch.where(small, (theta - torch.sin(theta)) / (th2s * theta),
+                             1.0 / 6.0 - theta2 * (1.0 / 120.0))
+    eye = torch.eye(3, dtype=log_tf.dtype, device=log_tf.device)
+    R = eye + sin_t_t[..., None, None] * K + one_m_cos_t2[..., None, None] * KK
+    V = eye + one_m_cos_t2[..., None, None] * K + t_m_sin_t3[..., None, None] * KK
+    t = (V @ v[..., None])[..., 0]
+    out = torch.zeros((*log_tf.shape[:-1], 4, 4), dtype=log_tf.dtype, device=log_tf.device)
+    out[..., :3, :3] = R
+    out[..., :3, 3] = t
+    out[..., 3, 3] = 1.0
+    return out
 
 
 def euler_matrix(rx, ry, rz):

@@ -2,7 +2,8 @@
 size: synth_box at shorter_side 120, 3 frames, a capture on frame 2, 8
 hypotheses, seeded networks at 32x32.  It writes a pose per frame, consumes
 its captures and accumulates the defect clouds; the pipelined (async) and
-the synchronous loop give the same poses and captures."""
+the synchronous loop give the same poses, and the same capture from the
+same seed."""
 import argparse
 import os
 
@@ -61,7 +62,19 @@ def _run(tmp_path, debug):
     return frame_times, poses, state
 
 
-def test_run_loop_async_and_sync(tmp_path, small_icp):
+def test_run_loop_async_and_sync(tmp_path, small_icp, monkeypatch):
+    calls = {"async": [], "sync": []}
+
+    def recorded(fn, key):
+        def call(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            calls[key].append((args, kwargs, out))
+            return out
+        return call
+
+    monkeypatch.setattr(trun, "capture_event_async",
+                        recorded(trun.capture_event_async, "async"))
+    monkeypatch.setattr(trun, "capture_event", recorded(trun.capture_event, "sync"))
     before = k2.ray_mesh_intersect.launches
     ft_a, poses_a, st_a = _run(tmp_path, 0)  # pipelined: async capture
     ft_s, poses_s, st_s = _run(tmp_path, 1)  # every frame synced
@@ -78,10 +91,42 @@ def test_run_loop_async_and_sync(tmp_path, small_icp):
         assert st.target_mesh is not None and len(st.target_mesh.faces) == 1280
     for a, b in zip(poses_a, poses_s):
         np.testing.assert_allclose(a, b, atol=1e-5)
-    (_, ra), (_, rs) = st_a.captures[1], st_s.captures[1]
-    assert abs(ra.fitness - rs.fitness) < 0.01
-    np.testing.assert_allclose(ra.transformation, rs.transformation, atol=0.05)
-    assert abs(len(st_a.intersection_pcds[1]) - len(st_s.intersection_pcds[1])) <= 1
+    # The capture on frame 2.  Both loops hand it the same frame (source
+    # cloud, heatmap rays, parameters) and a seed that differs by rounding
+    # alone: the async loop's computed in float32 from the device pose
+    # (ops/icp.py::capture_from_pose), the sync loop's on the host in
+    # float64, as in the JAX app.
+    [(a_args, a_kw, pending)] = calls["async"]
+    [(s_args, s_kw, (rs, pcd_s))] = calls["sync"]
+    src_a, pose_dev, tf_center, params_a, rays_a, mask_a, intens_a = a_args
+    src_s, _, seed_s, params_s, _, rays_s, mask_s, intens_s, c2d = s_args
+    np.testing.assert_array_equal(src_a.points, src_s.points)
+    np.testing.assert_array_equal(rays_a, rays_s)
+    np.testing.assert_array_equal(mask_a, mask_s)
+    np.testing.assert_array_equal(intens_a, intens_s)
+    assert params_a == params_s
+    f32 = lambda x: torch.as_tensor(x, dtype=torch.float32)  # noqa: E731
+    scale = torch.ones(4, 4)
+    scale[:3, 3] = 1000.0  # metres -> mm
+    seed_a = (f32(c2d) @ ((f32(pose_dev).reshape(4, 4) @ f32(tf_center)) * scale)).double().numpy()
+    np.testing.assert_allclose(seed_a[:3, :3], seed_s[:3, :3], atol=1e-6)
+    np.testing.assert_allclose(seed_a[:3, 3], seed_s[:3, 3], atol=1e-3)  # mm
+    ra, pcd_a = pending.result()
+    assert st_a.captures[1][1] is ra and st_s.captures[1][1] is rs
+    assert len(st_a.intersection_pcds[1]) == len(pcd_a.points)
+    assert len(st_s.intersection_pcds[1]) == len(pcd_s.points)
+    # The restart ICP is chaotic at that rounding (tests/test_icp_pipeline.py
+    # says so of the JAX package's two paths), so the two loops' outcomes are
+    # compared at one seed: the sync loop's capture, seeded with the async
+    # loop's float32 seed, gives the async loop's result.  What remains is
+    # the float32 restart seeds' own rounding (a ~500 mm translation).
+    rx, pcd_x = trun.capture_event(src_s, s_args[1], seed_a, *s_args[3:], **s_kw)
+    assert rx.fitness == ra.fitness
+    np.testing.assert_allclose(rx.inlier_rmse, ra.inlier_rmse, rtol=1e-5)
+    np.testing.assert_allclose(rx.transformation[:3, :3], ra.transformation[:3, :3], atol=1e-5)
+    np.testing.assert_allclose(rx.transformation[:3, 3], ra.transformation[:3, 3], atol=2e-3)
+    np.testing.assert_allclose(pcd_x.points, pcd_a.points, atol=2e-3)  # mm
+    np.testing.assert_array_equal(pcd_x.colors, pcd_a.colors)
 
 
 def _rigid(rng, trans_scale):

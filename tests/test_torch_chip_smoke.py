@@ -2,9 +2,9 @@
 and K2 through their plain versions, the pose server twice on the bundled
 weights, the accuracy phase, the capture path and the run loop twice, the
 loop at --debug 2 and in viewer mode, the point-click path on a crust, the
---icp registration, the trainer, the BOP campaign and the live-camera loop
-against a stand-in Kinect) and the kernels line has the keys the card run
-reports; a phase that fails stops the script before its result."""
+--icp registration, the trainer, the BOP campaign, the live-camera loop
+against a stand-in Kinect and the neural object field) and the kernels line
+has the keys the card run reports; a phase that fails stops the script before its result."""
 import json
 import os
 import sys
@@ -33,7 +33,7 @@ def test_chip_smoke_rehearsal_on_cpu(capsys):
     assert phases.index("pose") < phases.index("accuracy") < phases.index("capture") \
         < phases.index("debug") < phases.index("viewer") < phases.index("point_click") \
         < phases.index("icp_global") < phases.index("train_k1") < phases.index("train") \
-        < phases.index("bop") < phases.index("live")
+        < phases.index("bop") < phases.index("live") < phases.index("field")
     assert lines[-1] == {"kernels": kernels}
     assert [k["name"] for k in kernels] == ["raster_zbuffer", "ray_mesh_intersect"]
     for k in kernels:
@@ -140,6 +140,17 @@ def test_chip_smoke_rehearsal_on_cpu(capsys):
     assert [c["frame"] for c in live["captures"]] == [0, 2] and live["background_saved"]
     assert live["camera_stopped"] and len(live["adds_m"]) == 3
     assert max(live["vs_plain_rot_deg"]) == 0.0 and live["capture_tf_max_abs_diff"] == 0.0
+    # the neural object field: the tool's campaign on 4 frames of
+    # synth_box_recon at a tiny grid, its stages, the step split, and frame
+    # 0 registered on the extracted mesh
+    field = next(x for x in lines if x.get("phase") == "field")
+    assert field["steps"] == 10 and field["frames"] == 4 and field["n_vertices"] > 0
+    assert field["textured_mesh"].endswith("_textured.obj") and "chamfer_ok" in field
+    assert set(field["stage_seconds"]) == {"rays", "train", "extract", "colour", "write", "bake",
+                                           "write_textured"}
+    assert all(field[k] > 0 for k in ("draw_ms", "forward_backward_ms", "adam_ms"))
+    assert field["register_pose_finite"] and 0 < field["register_triangles"] <= 5000
+    assert field["register_k1_launches"] == 0  # the CPU renders through the plain raster
     assert kernels[0]["launches"] == kernels[1]["launches"] == 0
 
 

@@ -25,6 +25,9 @@ sys.path.insert(0, "tools")
 import train_torch_networks
 import run_bop_torch
 import convert_scene_to_bop_torch
+import run_object_field_torch
+import extract_field_mesh_torch
+import profile_torch_field
 run_bop_torch.main, convert_scene_to_bop_torch.main  # their imports run inside main
 bad = [n for n in sys.modules if n.split(".")[0] in {FORBIDDEN!r}]
 print("BAD", bad)
@@ -40,6 +43,7 @@ print("TRAINER", all(m in sys.modules for m in ("sixdof_tpu_torch.parallel.train
 print("LIVE", all(m in sys.modules for m in ("sixdof_tpu_torch.io.bop_reader",
                                              "sixdof_tpu_torch.io.kinect_tools",
                                              "sixdof_tpu_torch.utils.logging_utils")))
+print("FIELD", "sixdof_tpu_torch.models.object_field" in sys.modules)
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
@@ -52,6 +56,7 @@ print("LIVE", all(m in sys.modules for m in ("sixdof_tpu_torch.io.bop_reader",
     assert "SLICE True" in out.stdout  # and the viewer, features, marching, drawings
     assert "TRAINER True" in out.stdout  # and the trainer, with the training tool
     assert "LIVE True" in out.stdout  # the BOP reader, the Kinect tools, with their tools
+    assert "FIELD True" in out.stdout  # the neural object field, with its tools
 
 
 def test_bop_tools_run_without_jax_or_host_libraries(tmp_path):
@@ -76,6 +81,32 @@ print("BAD", [n for n in sys.modules if n.split(".")[0] in {FORBIDDEN!r}])
     assert "FRAMES 1" in out.stdout and "BAD []" in out.stdout, out.stdout
 
 
+def test_field_tools_run_without_jax_or_host_libraries(tmp_path):
+    """The field campaign and its resume, run on 2 frames of synth_box_recon
+    at a tiny grid on the CPU, load no forbidden module."""
+    code = f"""
+import sys
+import torch
+torch.set_num_threads(1)  # beside the suite's other workers
+sys.path.insert(0, "tools")
+import extract_field_mesh_torch, run_object_field_torch
+from sixdof_tpu_torch.models.object_field import HashGridSpec, ObjectFieldConfig
+spec = HashGridSpec(n_levels=4, base_res=4, finest_res=16, log2_hashmap_size=10)
+kw = dict(resolution=16, device="cpu", ckpt_dir={str(tmp_path)!r}, spec=spec, max_frames=2)
+out, _ = run_object_field_torch.main("demo_data/synth_box_recon", {str(tmp_path / "m.obj")!r},
+    steps=10, cfg=ObjectFieldConfig(n_rand=32, n_samples=4, n_samples_around_depth=4), **kw)
+again, _ = extract_field_mesh_torch.main("demo_data/synth_box_recon",
+    {str(tmp_path / "again.obj")!r}, **kw)
+print("STEPS", out["steps"], again["steps"])
+print("BAD", [n for n in sys.modules if n.split(".")[0] in {FORBIDDEN!r}])
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
+                         text=True, timeout=600)
+    assert out.returncode == 0, out.stderr
+    assert "STEPS 10 10" in out.stdout and "BAD []" in out.stdout, out.stdout
+
+
 def test_entry_points_raise_without_cuda(monkeypatch):
     import torch
 
@@ -98,6 +129,14 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     for predictor in (PoseRefinePredictor, ScorePredictor):
         with pytest.raises(RuntimeError, match="CUDA"):
             predictor()
+    from sixdof_tpu_torch.models import object_field as of
+
+    depth = np.full((1, 8, 8), 0.3)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        of.ObjectFieldRunner(of.ObjectFieldConfig(), np.eye(3), np.zeros((1, 8, 8, 3), np.uint8),
+                             depth, np.ones((1, 8, 8), np.uint8), np.eye(4)[None])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        of.OccupancyGrid(np.zeros((4, 3)))
 
 
 def test_kernel_wrapper_dispatch(monkeypatch):

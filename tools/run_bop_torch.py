@@ -30,9 +30,10 @@ sys.path.insert(0, REPO)
 
 def main(scene_dir, ob_id=None, frames=None, register_every=0, weights="weights_torch",
          shorter_side=None, prune_to=64, max_hypotheses=None, device=None, refiner=None,
-         scorer=None):
+         scorer=None, poses=None):
     """The campaign; returns (and prints) its JSON summary.  @refiner /
-    @scorer: predictors to use instead of loading @weights."""
+    @scorer: predictors to use instead of loading @weights; @poses: a list
+    that receives each frame's pose (4x4, object in camera, metres)."""
     from sixdof_tpu_torch.device import resolve_device
     from sixdof_tpu_torch.estimater import FoundationPose
     from sixdof_tpu_torch.io.bop_reader import BopSceneReader
@@ -77,6 +78,8 @@ def main(scene_dir, ob_id=None, frames=None, register_every=0, weights="weights_
         else:
             pose = est.track_one(rgb=color, depth=depth, K=reader.get_K(i), iteration=2)
         used_register.append(bool(do_register))
+        if poses is not None:
+            poses.append(np.asarray(pose))
         gt = reader.get_gt_pose(i)
         if gt is None:
             continue
