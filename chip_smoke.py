@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port's pose server, capture path, trainer, BOP
-campaign, live-camera loop and neural object field on one NVIDIA card and
-check them.
+campaign, live-camera loop, neural object field, H5 pose-pair path and the
+data axis of its multi-device path on one NVIDIA card and check them.
 
     python3 chip_smoke.py
 
@@ -114,9 +114,32 @@ non-zero without printing the final result:
            and Adam timed apart, one under the profiler (busy share,
            launches); frame 0 registered on the extracted mesh through K1
            (ADD-S reported, a finite pose required)
+  h5       the H5 pose-pair path at the trainer's width: a refiner batch of
+           32 pairs at 160x160 on synth_box through K1, its crops encoded
+           into the H5 layout's PNG blobs and decoded bit-equal (timed), a
+           BatchPoseData pinned and moved to the card, transform_batch at
+           H_ori, W_ori = 540, 720 on the card and the CPU (colour
+           bit-equal, xyz within H5_XYZ_ATOL but for H5_XYZ_FLIP_SHARE;
+           timed), select_by_indices; opening an .h5 file without h5py
+           raises the ImportError naming it
+  multi    the data axis of the multi-device path: 2 ranks on the one card
+           over gloo (spawn_ranks, a FileStore, 120 s timeouts; it measures
+           no scaling), part by part, each held to rank 0's unsharded run
+           of the same inputs: (register) FoundationPose(device_mesh=...)
+           on frame 0 at the app's configuration (252 hypotheses, prune_to
+           64, 96x96 coarse, 160x160, 5 iterations) against the unsharded
+           staged register (the pose phase's limits, top-5 scores 1e-3
+           relative); (capture) frame 2's capture with its restarts and
+           rays sharded, restart by restart and ray by ray; (train) 3
+           refiner and 3 scorer steps at batch 32 / 4 scenes x 12 and
+           (field) 3 object-field steps at the JAX tool's configuration,
+           each loss 1e-3 relative and the first step's averaged gradients
+           1e-4 of the largest entry; seconds and collective seconds a
+           part, each rank's K1 and K2 launches
   kernels  each kernel the run launched, with its check and numbers (K1's
-           launches: the pose, train, bop, live and field phases'; K2's:
-           the run loop's in capture (b), point_click's and live's)
+           launches: the pose, train, bop, live, field and h5 phases' and
+           multi's ranks'; K2's: the run loop's in capture (b),
+           point_click's, live's and multi's ranks')
 
 The last line is {"ok": true, "device": {...}}.  Without CUDA the script
 exits 1 before any result.  `run(device="cpu", small=True)` rehearses every
@@ -1737,6 +1760,538 @@ def phase_field(device, cfg, small, refiner, scorer):
     return dict(launches=k1)
 
 
+H5_ORI = (540, 720)  # the H5 reader's default H_ori, W_ori
+# transform_batch on the card against the CPU: the same float32 operations,
+# but the crop transforms' inverses (cuSOLVER, LAPACK) may differ by an ulp,
+# which can flip a nearest pick at a half-pixel boundary: at most this share
+# of the xyz values may differ by more than H5_XYZ_ATOL; colour bit-equal
+H5_XYZ_ATOL, H5_XYZ_FLIP_SHARE = 1e-5, 1e-3
+
+
+def _frame_fields(A, B, poses_A, poses_B, tfs, K, diameter):
+    """The H5 layout's samples of a refiner batch: uint8 colour and the
+    depth (the crops' z, in metres) as write_pair_h5 stores it, uint16 mm;
+    and the poses, intrinsics, crop transforms and diameters as load_batch
+    returns them."""
+    import numpy as np
+    import torch
+
+    n = A.shape[0]
+    cz = poses_A[:, 2, 3][:, None, None]
+    out = {}
+    for side, x in (("A", A), ("B", B)):
+        out[f"rgb{side}"] = (x[..., :3] * 255.0).round().to(torch.uint8).cpu().numpy()
+        depth = np.maximum((x[..., 5] + cz).cpu().numpy(), 0.0)
+        out[f"depth{side}"] = np.round(depth * 1000.0).astype(np.uint16)
+    meta = dict(poseA=poses_A.cpu().numpy(), poseB=poses_B.cpu().numpy(),
+                Ks=np.repeat(K.cpu().numpy()[None], n, axis=0), tf_to_crops=tfs.cpu().numpy(),
+                mesh_diameters=np.full(n, diameter, np.float32))
+    return out, meta
+
+
+def phase_h5(device, scene, small):
+    """The H5 pose-pair path at the trainer's width: a refiner batch of 32
+    pairs at 160x160 on synth_box rendered through K1 (make_refiner_batch),
+    every rgb and depth crop encoded into the H5 layout's PNG blobs and
+    decoded bit-equal (timed), a BatchPoseData of the decoded pairs pinned
+    and moved to the card, transform_batch at H_ori, W_ori = 540, 720 on the
+    card and on the CPU (held to each other, timed), select_by_indices; and
+    an .h5 file opened: without h5py (the card) the ImportError naming it,
+    with h5py (a CPU rehearsal) the file written and read back equal."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from sixdof_tpu_torch.io import h5_dataset as h5
+    from sixdof_tpu_torch.io.mesh_io import load_mesh
+    from sixdof_tpu_torch.io.png import decode_png, encode_png
+    from sixdof_tpu_torch.io.readers import DataReader
+    from sixdof_tpu_torch.kernels.raster import rasterize_zbuffer
+    from sixdof_tpu_torch.models.pose_data import BatchPoseData, PoseData
+    from sixdof_tpu_torch.ops.geometry import compute_crop_window_tf_batch, compute_mesh_diameter
+    from sixdof_tpu_torch.ops.rasterize import make_mesh_arrays
+    from sixdof_tpu_torch.parallel import train as tr
+
+    reader = DataReader(scene)
+    K = torch.as_tensor(reader.color_K, dtype=torch.float32, device=device)
+    mesh = load_mesh(os.path.join(scene, "mesh", "model_scaled_down.obj"))
+    mesh.vertices = mesh.vertices - (mesh.vertices.max(0) + mesh.vertices.min(0)) / 2
+    diameter = compute_mesh_diameter(mesh.vertices)
+    cfg = tr.TrainConfig(batch_size=2 if small else 32,
+                         input_hw=(32, 32) if small else (160, 160), p_occlusion=0.5,
+                         p_sensor=0.5)
+    draws = tr.refiner_draws(torch.Generator(device).manual_seed(13), cfg)
+    _sync(device)
+    rasterize_zbuffer.launches = 0
+    A, B, _, _ = tr.make_refiner_batch(draws, make_mesh_arrays(mesh, device), K, diameter, cfg)
+    _sync(device)
+    k1 = rasterize_zbuffer.launches
+    gt = tr._random_poses(draws["poses"])
+    hyp = tr._perturb(draws["perturb"], gt)[0]
+    H, W = cfg.input_hw
+    tfs = compute_crop_window_tf_batch(hyp, K, crop_ratio=1.2, out_size=(W, H),
+                                       mesh_diameter=diameter)
+    images, meta = _frame_fields(A, B, hyp, gt, tfs, K, diameter)
+
+    # PNG blobs (the H5 layout's np.void scalars): encode, decode, bit-equal
+    t0 = time.perf_counter()
+    blobs = {k: [encode_png(x) for x in v] for k, v in images.items()}
+    decoded = {k: np.stack([decode_png(b) for b in v]) for k, v in blobs.items()}
+    png_ms = (time.perf_counter() - t0) * 1e3
+    png_equal = all(np.array_equal(decoded[k], images[k]) and decoded[k].dtype == images[k].dtype
+                    for k in images)
+    fields = dict(rgbAs=decoded["rgbA"], rgbBs=decoded["rgbB"],
+                  depthAs=decoded["depthA"].astype(np.float32) / h5.PairH5Dataset.DEPTH_SCALE,
+                  depthBs=decoded["depthB"].astype(np.float32) / h5.PairH5Dataset.DEPTH_SCALE,
+                  **meta)
+
+    # transform_batch on the card (pinned host batch moved over) and the CPU
+    ds = h5.PoseRefinePairH5Dataset(mode="test")  # transform-only, no file
+    cpu = BatchPoseData(**fields).device("cpu")
+    if device.type == "cuda":
+        cpu = cpu.pin_memory()
+    on_dev = BatchPoseData(**vars(cpu)).device(device)
+    n_time = 1 if small else 10
+    ds.transform_batch(BatchPoseData(**vars(on_dev)), *H5_ORI)  # warm-up
+    transform_ms = _timed(lambda: ds.transform_batch(BatchPoseData(**vars(on_dev)), *H5_ORI),
+                          device, n_time)
+    got = ds.transform_batch(BatchPoseData(**vars(on_dev)), *H5_ORI)
+    t0 = time.perf_counter()
+    want = ds.transform_batch(BatchPoseData(**vars(cpu)), *H5_ORI)
+    transform_cpu_ms = (time.perf_counter() - t0) * 1e3
+    rgb_equal = all(torch.equal(getattr(got, k).cpu(), getattr(want, k))
+                    for k in ("rgbAs", "rgbBs"))
+    xyz_err = [(getattr(got, k).cpu() - getattr(want, k)).abs()
+               for k in ("xyz_mapAs", "xyz_mapBs")]
+    flip_share = float(sum((e > H5_XYZ_ATOL).sum() for e in xyz_err)
+                       / sum(e.numel() for e in xyz_err))
+    pick = [min(3, cfg.batch_size - 1), 0]
+    sub = got.select_by_indices(pick)
+    select_ok = all(torch.equal(getattr(sub, k)[j], getattr(got, k)[i])
+                    for k in ("xyz_mapAs", "rgbBs", "poseA") for j, i in enumerate(pick))
+
+    # an .h5 file: the card has no h5py
+    path = os.path.join(REPO, "build", "chip_smoke", "h5", "pairs.h5")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    has_h5py = importlib.util.find_spec("h5py") is not None
+    if has_h5py:
+        samples = [PoseData(rgbA=images["rgbA"][i], rgbB=images["rgbB"][i],
+                            depthA=fields["depthAs"][i], depthB=fields["depthBs"][i],
+                            poseA=meta["poseA"][i], poseB=meta["poseB"][i], K=meta["Ks"][i],
+                            tf_to_crop=meta["tf_to_crops"][i], mesh_diameter=diameter)
+                   for i in range(cfg.batch_size)]
+        h5.write_pair_h5(path, {"synth_box": samples}, H_ori=H5_ORI[0], W_ori=H5_ORI[1])
+        back = h5.PairH5Dataset(h5_file=path)
+        read = [back.load_sample("synth_box", i) for i in range(cfg.batch_size)]
+        file_ok = all(np.array_equal(s.rgbA, images["rgbA"][i])
+                      and np.array_equal(s.depthB, fields["depthBs"][i])
+                      for i, s in enumerate(read)) and (back.H_ori, back.W_ori) == H5_ORI
+        open_h5 = "written and read back equal" if file_ok else "read back differently"
+    else:
+        try:
+            h5.PairH5Dataset(h5_file=path)
+            file_ok, open_h5 = False, "opened without h5py"
+        except ImportError as e:
+            file_ok, open_h5 = "h5py" in str(e), f"ImportError: {e}"
+    res = dict(pairs=cfg.batch_size, hw=list(cfg.input_hw), ori=list(H5_ORI), k1_launches=k1,
+               png_round_trip_ms=png_ms,
+               png_ms_per_image=png_ms / sum(len(v) for v in blobs.values()),
+               png_bytes=sum(len(b) for v in blobs.values() for b in v), png_bit_equal=png_equal,
+               transform_ms=transform_ms, transform_cpu_ms=transform_cpu_ms,
+               xyz_max_abs_diff=float(max(e.max() for e in xyz_err)),
+               xyz_share_over_atol=flip_share, rgb_bit_equal=rgb_equal,
+               select_by_indices_ok=select_ok, h5py=has_h5py, open_h5=open_h5)
+    emit({"phase": "h5", **res})
+    if not (png_equal and rgb_equal and select_ok and file_ok):
+        raise RuntimeError(f"the H5 path failed: {res}")
+    if flip_share > H5_XYZ_FLIP_SHARE:
+        raise RuntimeError(f"transform_batch on {device} and on the CPU disagree: {res}")
+    if device.type == "cuda" and k1 == 0:
+        raise RuntimeError("the H5 phase's batch did not launch raster kernel K1")
+    return dict(launches=k1)
+
+
+# ------------------------------------------------------- multi-device --
+
+MULTI_RANKS = 2  # processes on the one card, over gloo (NCCL refuses two on one device)
+MULTI_TIMEOUT = 120.0  # each part's rendezvous, and its wait for the ranks' results
+MULTI_TRAIN_STEPS = 3
+# sharded against unsharded: top-5 register scores, each step's loss
+# (relative), the first step's averaged gradients (of the largest entry)
+MULTI_SCORE_RTOL, MULTI_LOSS_RTOL, MULTI_GRAD_REL = 1e-3, 1e-3, 1e-4
+# the capture restart by restart (mm transforms: rotation entries, then
+# translations), fitness, and the hit distances (mm)
+MULTI_ROT_ATOL, MULTI_TRANS_MM_ATOL, MULTI_FIT_ATOL, MULTI_HIT_MM_ATOL = 1e-4, 1e-2, 1e-3, 1e-3
+
+
+def _config(small):
+    """The pipeline configuration of the run: the app's, or the CPU
+    rehearsal's tiny one."""
+    from sixdof_tpu_torch.config import PipelineConfig
+
+    if small:
+        return PipelineConfig(shorter_side=120, input_resize=(32, 32), prune_to=4,
+                              coarse_hw=(16, 16))
+    return PipelineConfig()
+
+
+def _bundled_predictors(device, cfg):
+    """The refiner and scorer on the bundled weights (weights_torch/)."""
+    from sixdof_tpu_torch.models.predict import PoseRefinePredictor, ScorePredictor
+
+    nets = []
+    for cls, net in ((PoseRefinePredictor, "refiner"), (ScorePredictor, "scorer")):
+        pred = cls(device, cfg={"input_resize": cfg.input_resize},
+                   ckpt_dir=os.path.join(WEIGHTS, f"{net}.npz"))
+        if pred.ckpt_path is None:
+            raise RuntimeError(f"no exported {net} weights under {WEIGHTS}: "
+                               "JAX_PLATFORMS=cpu python tools/export_torch_weights.py")
+        nets.append(pred)
+    return nets
+
+
+def _kernel_counts(reset=False):
+    """(K1, K2) launch counts; set to 0 first with @reset."""
+    from sixdof_tpu_torch.kernels import raster, raytrace
+
+    if reset:
+        raster.rasterize_zbuffer.launches = raytrace.ray_mesh_intersect.launches = 0
+    return raster.rasterize_zbuffer.launches, raytrace.ray_mesh_intersect.launches
+
+
+def _multi_register(mesh, device, small):
+    """synth_box frame 0 registered by FoundationPose(device_mesh=...) at the
+    app's configuration (the staged path, hypotheses split over the ranks),
+    on the card after one warm-up register; rank 0 then registers the frame
+    unsharded through the staged path (debug 2, as phase debug)."""
+    from sixdof_tpu_torch.estimater import FoundationPose
+    from sixdof_tpu_torch.io.mesh_io import load_mesh
+    from sixdof_tpu_torch.io.readers import DataReader
+
+    cfg = _config(small)
+    refiner, scorer = _bundled_predictors(device, cfg)
+    scene = os.path.join(REPO, cfg.test_scene_dir)
+    reader = DataReader(scene, shorter_side=cfg.shorter_side)
+    obj = load_mesh(os.path.join(scene, "mesh", "model_scaled_down.obj"))
+    color = reader.get_color(0)
+    frame = dict(K=reader.color_K, rgb=color, depth=reader.get_depth(0),
+                 ob_mask=reader.get_mask(color, 0).astype(bool), iteration=cfg.est_refine_iter)
+
+    def engine(**kw):
+        est = FoundationPose(model_pts=obj.vertices, model_normals=obj.vertex_normals, mesh=obj,
+                             scorer=scorer, refiner=refiner, device=device,
+                             prune_to=cfg.prune_to, coarse_hw=cfg.coarse_hw, **kw)
+        if small:
+            est.rot_grid = est.rot_grid[:: len(est.rot_grid) // 8][:8]
+        return est
+
+    def register(est):
+        _sync(device)
+        t0 = time.perf_counter()
+        pose = est.register(**frame)
+        _sync(device)
+        return pose, time.perf_counter() - t0
+
+    sharded = engine(device_mesh=mesh)
+    if device.type == "cuda":  # warm-up: first-call set-up stays out of the count and the time
+        register(sharded)
+    _kernel_counts(reset=True)
+    pose, seconds = register(sharded)
+    k1, k2 = _kernel_counts()
+    out = dict(k1=k1, k2=k2, n_hypotheses=len(sharded.rot_grid), register_s=seconds, pose=pose,
+               top_scores=sharded.scores[:5])
+    if mesh.rank == 0:
+        ref = engine(debug=2, debug_dir=os.path.join(REPO, "build", "chip_smoke", "multi"))
+        ref_pose, ref_s = register(ref)
+        out.update(unsharded_pose=ref_pose, unsharded_top_scores=ref.scores[:5],
+                   unsharded_register_s=ref_s)
+    return out
+
+
+def _multi_capture(mesh, device, small):
+    """Frame 2's capture (phase capture (a)'s inputs: the annotated pose,
+    the heatmap's rays) through ops/icp.py::capture_from_pose with the ICP
+    restarts and the defect rays split over the ranks (on the card after one
+    warm-up); rank 0 then runs it unsharded."""
+    import numpy as np
+    import torch
+
+    from sixdof_tpu_torch.app.defect_projection import compute_rays, heatmap_to_points
+    from sixdof_tpu_torch.app.icp_pipeline import (CaptureContext, _pad_cloud,
+                                                   preprocess_source, preprocess_target)
+    from sixdof_tpu_torch.io.readers import DataReader
+    from sixdof_tpu_torch.ops.icp import capture_from_pose
+
+    cfg = _config(small)
+    reader = DataReader(os.path.join(REPO, cfg.test_scene_dir))
+    params = _icp_parameters(reader.parameters, small)
+    ctx = CaptureContext(preprocess_target(reader.target, params)[0], reader.target_mesh,
+                         reader.color_to_depth, device=device)
+    src2 = preprocess_source(reader.get_source(2), reader.background, params, i=2)[0]
+    rays, inten = compute_rays(heatmap_to_points(reader.get_heatmap(reader.get_color(0))[0],
+                                                 0.75), reader.color_pinhole)
+    noise, thr, base_thresh, max_iter, n_restarts = ctx.restarts_device(params)
+    tf_center, c2d = ctx.pose_consts_device(np.eye(4))
+    rays_d, ray_mask, _ = ctx.rays_device(rays, np.ones(len(rays), bool), inten)
+    src, src_mask = _pad_cloud(src2.points, device)
+    pose = torch.as_tensor(reader.get_gt_pose(2), dtype=torch.float32, device=device)
+
+    def capture(device_mesh):
+        _sync(device)
+        t0 = time.perf_counter()
+        out = capture_from_pose(src, src_mask, ctx.tgt, ctx.tgt_normals, ctx.tgt_mask, pose,
+                                tf_center, c2d, noise, thr, base_thresh, ctx.tri, ctx.tri_mask,
+                                rays_d, ray_mask, ctx.depth_to_color, max_iter=max_iter,
+                                device_mesh=device_mesh)
+        out = [a.cpu().numpy() for a in out]
+        return out, time.perf_counter() - t0
+
+    if device.type == "cuda":
+        capture(mesh)  # warm-up
+    _kernel_counts(reset=True)
+    sharded, seconds = capture(mesh)
+    k1, k2 = _kernel_counts()
+    res = dict(k1=k1, k2=k2, restarts=n_restarts, rays=len(rays), capture_s=seconds,
+               sharded=sharded)
+    if mesh.rank == 0:
+        res["unsharded"], res["unsharded_capture_s"] = capture(None)
+    return res
+
+
+def _multi_train(mesh, device, small):
+    """MULTI_TRAIN_STEPS refiner and scorer steps at the trainer's
+    configuration (batch 32 at 160x160; 4 scenes x 12), data-parallel over
+    the ranks from one generator, the first step's averaged gradients kept;
+    rank 0 then takes the same steps unsharded from the same generator."""
+    import torch
+
+    from sixdof_tpu_torch.io.mesh_io import load_mesh
+    from sixdof_tpu_torch.io.readers import DataReader
+    from sixdof_tpu_torch.models.networks import RefineNet, ScoreNetMultiPair
+    from sixdof_tpu_torch.ops.geometry import compute_mesh_diameter
+    from sixdof_tpu_torch.ops.rasterize import make_mesh_arrays
+    from sixdof_tpu_torch.parallel import train as tr
+
+    scene = os.path.join(REPO, _config(small).test_scene_dir)
+    obj = load_mesh(os.path.join(scene, "mesh", "model_scaled_down.obj"))
+    obj.vertices = obj.vertices - (obj.vertices.max(0) + obj.vertices.min(0)) / 2
+    arrays = make_mesh_arrays(obj, device)
+    K, diameter = DataReader(scene).color_K, compute_mesh_diameter(obj.vertices)
+    rcfg = tr.TrainConfig(batch_size=4 if small else 32,
+                          input_hw=(32, 32) if small else (160, 160), p_occlusion=0.5,
+                          p_sensor=0.5)
+    scfg = rcfg._replace(n_hypotheses=2 if small else 12, lr=3e-4)
+
+    def steps(cls, model, cfg, device_mesh):
+        trainer = cls(model(c_in=6), arrays, K, diameter, cfg, seed=0, device_mesh=device_mesh)
+        gen = torch.Generator(device).manual_seed(21)
+        first = _step_seconds(device, lambda: trainer.gradients(trainer.batch(gen)))
+        grads = torch.cat([p.grad.reshape(-1) for p in trainer.model.parameters()]).clone()
+        trainer.optimizer.step()
+        return _steps(device, first, lambda: trainer.step(gen)), grads
+
+    out = dict(k1=0, k2=0)
+    for name, cls, model, cfg in (("refiner", tr.RefinerTrainer, RefineNet, rcfg),
+                                  ("scorer", tr.ScorerTrainer, ScoreNetMultiPair, scfg)):
+        _kernel_counts(reset=True)
+        res, grads = steps(cls, model, cfg, mesh)
+        res["batch"] = cfg.batch_size if name == "refiner" else cls.n_scenes * cfg.n_hypotheses
+        out["k1"] += _kernel_counts()[0]
+        if mesh.rank == 0:
+            ref, ref_grads = steps(cls, model, cfg, None)
+            res.update(unsharded_losses=ref["losses"], unsharded_step_s=ref["step_s"],
+                       grad_max=float(ref_grads.abs().max()),
+                       grad_max_abs_diff=float((grads - ref_grads).abs().max()))
+        out[name] = res
+    return out
+
+
+def _step_seconds(device, fn):
+    """(@fn's result, its synchronised seconds)."""
+    _sync(device)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(device)
+    return out, time.perf_counter() - t0
+
+
+def _steps(device, first, step):
+    """The losses and seconds of MULTI_TRAIN_STEPS steps: @first's (a
+    (loss, seconds) pair already taken), then @step's, each synchronised."""
+    runs = [first] + [_step_seconds(device, step) for _ in range(MULTI_TRAIN_STEPS - 1)]
+    return dict(losses=[float(loss) for loss, _ in runs], step_s=[t for _, t in runs])
+
+
+def _multi_field(mesh, device, small):
+    """MULTI_TRAIN_STEPS object-field steps on synth_box_recon at the JAX
+    tool's configuration (2048 rays, a 2^22 table), data-parallel over the
+    ranks (every rank the same draws), the first step's averaged gradients
+    kept; rank 0 then takes the same steps unsharded from the same seed."""
+    import torch
+
+    from sixdof_tpu_torch.models.object_field import (HashGridSpec, ObjectFieldConfig,
+                                                      ObjectFieldRunner)
+
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    from run_object_field_torch import load_frames
+
+    if small:  # phase field's rehearsal size
+        cfg = ObjectFieldConfig(n_rand=64, n_samples=8, n_samples_around_depth=8)
+        spec = HashGridSpec(n_levels=4, base_res=4, finest_res=16, log2_hashmap_size=12)
+    else:
+        cfg, spec = ObjectFieldConfig(), HashGridSpec()
+    frames = load_frames(FIELD_SCENE, 4 if small else None)
+
+    def steps(device_mesh):
+        runner = ObjectFieldRunner(cfg, *frames, spec=spec, seed=0, device=device)
+        first = _step_seconds(device,
+                              lambda: runner.loss_and_grad(runner.draw(), device_mesh)[0])
+        grads = torch.cat([p.grad.reshape(-1) for p in runner.params.parameters()]).clone()
+        runner.opt.step()
+        res = _steps(device, first, lambda: runner.step(runner.draw(), device_mesh)[0])
+        return dict(res, table_mb=runner.params.table.numel() * 4 / 1e6), grads
+
+    _kernel_counts(reset=True)
+    out, grads = steps(mesh)
+    k1, k2 = _kernel_counts()
+    out.update(k1=k1, k2=k2, rays=int(cfg.n_rand))
+    if mesh.rank == 0:
+        ref, ref_grads = steps(None)
+        out.update(unsharded_losses=ref["losses"], unsharded_step_s=ref["step_s"],
+                   grad_max=float(ref_grads.abs().max()),
+                   grad_max_abs_diff=float((grads - ref_grads).abs().max()))
+    return out
+
+
+MULTI_PARTS = {"register": _multi_register, "capture": _multi_capture, "train": _multi_train,
+               "field": _multi_field}
+# the kernel each part's ranks launch (K1 renders, K2 traces; the field none)
+MULTI_KERNEL = {"register": 0, "capture": 1, "train": 0}
+
+
+def multi_rank(mesh, part, device_type, small):
+    """One rank of phase multi: part @part on the device @device_type (both
+    ranks share the one card), with the run's cuDNN settings."""
+    import torch
+
+    from sixdof_tpu_torch.device import resolve_device
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    out = MULTI_PARTS[part](mesh, resolve_device(device_type), small)
+    return dict(out, collective_s=mesh.collective_seconds)
+
+
+def _rel(a, b):
+    import numpy as np
+
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30)))
+
+
+def _check_multi(part, ranks):
+    """The gates of one part against rank 0's unsharded run; returns the
+    numbers compared and the failures."""
+    import numpy as np
+
+    r0, out, bad = ranks[0], {}, []
+    if part == "register":
+        same = all(np.array_equal(r["pose"], r0["pose"]) for r in ranks)
+        rot = _rot_deg(r0["pose"][:3, :3], r0["unsharded_pose"][:3, :3])
+        trans = float(np.linalg.norm(r0["pose"][:3, 3] - r0["unsharded_pose"][:3, 3]))
+        rel = _rel(r0["top_scores"], r0["unsharded_top_scores"])
+        out = dict(ranks_same_pose=same, vs_unsharded_rot_deg=rot, vs_unsharded_trans_m=trans,
+                   top5_scores_max_rel_diff=rel)
+        bad = [not same, rot > POSE_ROT_DEG_MAX, trans > POSE_TRANS_M_MAX,
+               rel > MULTI_SCORE_RTOL]
+    elif part == "capture":
+        (tf, fit, _, best, t), (tf1, fit1, _, best1, t1) = r0["sharded"], r0["unsharded"]
+        nr, nray = r0["restarts"], r0["rays"]
+        same = all(all(np.array_equal(a, b) for a, b in zip(r["sharded"], r0["sharded"]))
+                   for r in ranks)
+        out = dict(ranks_same=same, padded=[int(tf.shape[0]) - 1, int(t.shape[0])],
+                   rot_max_abs_diff=float(np.abs(tf[:nr, :3, :3] - tf1[:nr, :3, :3]).max()),
+                   trans_max_abs_diff_mm=float(np.abs(tf[:nr, :3, 3] - tf1[:nr, :3, 3]).max()),
+                   fitness_max_abs_diff=float(np.abs(fit[:nr] - fit1[:nr]).max()),
+                   chosen_max_abs_diff=float(np.abs(tf[int(best)] - tf1[int(best1)]).max()),
+                   chosen_fitness=float(fit[int(best)]))
+        hit, hit1 = np.isfinite(t[:nray]), np.isfinite(t1[:nray])
+        out.update(hits=int(hit.sum()), hits_same=bool(np.array_equal(hit, hit1)),
+                   hit_max_abs_diff_mm=float(np.abs(t[:nray][hit] - t1[:nray][hit]).max())
+                   if hit.any() else 0.0)
+        bad = [not same, out["rot_max_abs_diff"] > MULTI_ROT_ATOL,
+               out["trans_max_abs_diff_mm"] > MULTI_TRANS_MM_ATOL,
+               out["fitness_max_abs_diff"] > MULTI_FIT_ATOL,
+               np.abs(tf[int(best)][:3, :3] - tf1[int(best1)][:3, :3]).max() > MULTI_ROT_ATOL,
+               np.abs(tf[int(best)][:3, 3] - tf1[int(best1)][:3, 3]).max() > MULTI_TRANS_MM_ATOL,
+               not out["hits_same"], out["hit_max_abs_diff_mm"] > MULTI_HIT_MM_ATOL,
+               not np.isinf(t[nray:]).all()]
+    else:
+        for name in ("refiner", "scorer") if part == "train" else (None,):
+            r = r0[name] if name else r0
+            same = all((q[name] if name else q)["losses"] == r["losses"] for q in ranks)
+            rel = _rel(r["losses"], r["unsharded_losses"])
+            grad_rel = r["grad_max_abs_diff"] / max(r["grad_max"], 1e-30)
+            out[name or part] = dict(ranks_same_losses=same, loss_max_rel_diff=rel,
+                                     first_grad_diff_of_max=grad_rel)
+            bad += [not same, rel > MULTI_LOSS_RTOL, grad_rel > MULTI_GRAD_REL]
+    return out, any(bad)
+
+
+def phase_multi(device, small):
+    """The data axis of the multi-device path: MULTI_RANKS ranks on the one
+    card (gloo; every tensor on the card, gloo's all_gather through host
+    memory), started part by part by spawn_ranks, each part held to rank
+    0's unsharded run of the same inputs (the gates above).  It measures no
+    scaling: both ranks share one card."""
+    from sixdof_tpu_torch.parallel.sharding import spawn_ranks
+
+    res = dict(backend="gloo", ranks_per_card=MULTI_RANKS, measures_scaling=False, parts={})
+    k1 = k2 = 0
+    failed = []
+    for part in MULTI_PARTS:
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(multi_rank, MULTI_RANKS, args=(part, device.type, small),
+                            backend="gloo", timeout=MULTI_TIMEOUT, threads=1 if small else None)
+        seconds = time.perf_counter() - t0
+        checks, bad = _check_multi(part, ranks)
+        launches = [(r["k1"], r["k2"]) for r in ranks]
+        keep = {k: v for k, v in ranks[0].items()
+                if k not in ("pose", "unsharded_pose", "sharded", "unsharded", "k1", "k2",
+                             "collective_s")}
+        res["parts"][part] = dict(seconds=seconds, collective_s=[r["collective_s"] for r in ranks],
+                                  k1_launches=[n for n, _ in launches],
+                                  k2_launches=[n for _, n in launches], checks=checks,
+                                  **_jsonable(keep))
+        k1 += sum(n for n, _ in launches)
+        k2 += sum(n for _, n in launches)
+        if bad:
+            failed.append(part)
+        kernel = MULTI_KERNEL.get(part)  # every rank must launch its part's kernel
+        if device.type == "cuda" and kernel is not None and not all(n[kernel] for n in launches):
+            failed.append(f"{part}: a rank launched no {('K1', 'K2')[kernel]}")
+    emit({"phase": "multi", **res})
+    if failed:
+        raise RuntimeError(f"phase multi failed: {failed}")
+    return dict(k1_launches=k1, k2_launches=k2)
+
+
+def _jsonable(x):
+    """numpy values as lists and floats, for the phase's JSON line."""
+    import numpy as np
+
+    if isinstance(x, dict):
+        return {k: _jsonable(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_jsonable(v) for v in x]
+    if isinstance(x, np.ndarray):
+        return x.tolist()
+    if isinstance(x, np.generic):
+        return x.item()
+    return x
+
+
 def _rot_deg(R1, R2):
     """Rotation angle between R1 and R2 from the chord ||R1 - R2||_F
     (= 2 sqrt(2) sin(angle / 2)), stable near zero unlike the trace form."""
@@ -1751,14 +2306,12 @@ def run(device="cuda", small=False):
     import numpy as np
     import torch
 
-    from sixdof_tpu_torch.config import PipelineConfig
     from sixdof_tpu_torch.device import resolve_device
     from sixdof_tpu_torch.io import png
     from sixdof_tpu_torch.io.mesh_io import decimate_mesh, load_mesh
     from sixdof_tpu_torch.io.readers import DataReader
     from sixdof_tpu_torch.kernels import raster, raytrace
     from sixdof_tpu_torch.kernels.build import build_all
-    from sixdof_tpu_torch.models.predict import PoseRefinePredictor, ScorePredictor
     from sixdof_tpu_torch.ops.geometry import compute_mesh_diameter
     from sixdof_tpu_torch.ops.hypotheses import make_rotation_grid
     from sixdof_tpu_torch.ops.rasterize import make_mesh_arrays
@@ -1782,10 +2335,7 @@ def run(device="cuda", small=False):
                                        "ptxas": lib.info["ptxas"].strip().splitlines()[-2:]}
                             for lib in libraries}})
 
-    cfg = PipelineConfig()
-    if small:
-        cfg = PipelineConfig(shorter_side=120, input_resize=(32, 32), prune_to=4,
-                             coarse_hw=(16, 16))
+    cfg = _config(small)
     scene = os.path.join(REPO, cfg.test_scene_dir)
 
     # K1 at the register shapes, on seeded poses around the object
@@ -1817,15 +2367,7 @@ def run(device="cuda", small=False):
 
     # the pose server on the bundled networks, through the kernel, then
     # through the plain raster
-    nets = []
-    for cls, net in ((PoseRefinePredictor, "refiner"), (ScorePredictor, "scorer")):
-        pred = cls(dev, cfg={"input_resize": cfg.input_resize},
-                   ckpt_dir=os.path.join(WEIGHTS, f"{net}.npz"))
-        if pred.ckpt_path is None:
-            raise RuntimeError(f"no exported {net} weights under {WEIGHTS}: "
-                               "JAX_PLATFORMS=cpu python tools/export_torch_weights.py")
-        nets.append(pred)
-    refiner, scorer = nets
+    refiner, scorer = _bundled_predictors(dev, cfg)
     n_frames = 2 if small else 5
     kern = phase_pose(dev, cfg, small, n_frames, False, refiner, scorer, warmup=on_card)
     plain = phase_pose(dev, cfg, small, n_frames, True, refiner, scorer, warmup=False)
@@ -1864,6 +2406,10 @@ def run(device="cuda", small=False):
     live = phase_live(dev, cfg, scene, small, refiner, scorer)
     # the neural object field: a fit, its mesh, and a register on that mesh
     field = phase_field(dev, cfg, small, refiner, scorer)
+    # the H5 pose-pair path, then the data axis of the multi-device path
+    # (ranks on the card; their launches are counted in the ranks)
+    h5 = phase_h5(dev, scene, small)
+    multi = phase_multi(dev, small)
 
     main_shape = k1[0]
     kernels = [{
@@ -1871,7 +2417,7 @@ def run(device="cuda", small=False):
         "source": "sixdof_tpu_torch/csrc/raster_zbuffer.cu",
         "replaces": "sixdof_tpu/ops/pallas/raster_kernel.py:188",
         "launches": kern["launches"] + train["launches"] + bop["launches"]
-        + live["k1_launches"] + field["launches"],
+        + live["k1_launches"] + field["launches"] + h5["launches"] + multi["k1_launches"],
         "max_abs_err": max(r["max_abs_depth_err"] for r in k1 + train["k1"]),
         "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"], "bound_by": main_shape["bound_by"],
@@ -1881,7 +2427,8 @@ def run(device="cuda", small=False):
         "name": "ray_mesh_intersect", "route": "cuda",
         "source": "sixdof_tpu_torch/csrc/ray_mesh.cu",
         "replaces": "sixdof_tpu/ops/pallas/raytrace_kernel.py:85",
-        "launches": cap["loop_k2_launches"] + clicks[0]["launches"] + live["k2_launches"],
+        "launches": cap["loop_k2_launches"] + clicks[0]["launches"] + live["k2_launches"]
+        + multi["k2_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in k2),
         "ms": k2[0]["ms"], "plain_ms": k2[0]["plain_ms"],
         "bound_ms": k2[0]["bound_ms"], "bound_by": k2[0]["bound_by"],

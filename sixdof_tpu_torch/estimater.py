@@ -9,12 +9,15 @@ scoring and the depth polishes run on the estimator's device; the host
 guesses the initial translation from the mask and orchestrates.
 
 Registration runs the fused cascade (models/predict.py::register_pipeline)
-or, at `debug >= 2`, the JAX engine's staged path: refine and score as
-separate predictor calls, with the refiner's crops written to
-`{debug_dir}/vis_refiner.png`.  The JAX engine also takes the staged path
-on a device mesh or while its fused program compiles; the executable cache
-and background precompile exist to hide TPU compile time, and PyTorch
-runs eagerly, so they have no counterpart here.
+or, at `debug >= 2` or with a `device_mesh`, the JAX engine's staged path:
+refine and score as separate predictor calls, with (at `debug >= 2`) the
+refiner's crops written to `{debug_dir}/vis_refiner.png`.  With a
+`device_mesh` (parallel/sharding.py: one process a rank) every stage splits
+the hypotheses across the ranks, and every rank returns the same pose;
+tracking is not sharded, as in JAX.  The JAX engine also takes the staged
+path while its fused program compiles; the executable cache and background
+precompile exist to hide TPU compile time, and PyTorch runs eagerly, so
+they have no counterpart here.
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ from .ops.hypotheses import make_rotation_grid
 from .ops.icp import icp_polish_two_pass
 from .ops.pointcloud import voxel_down_sample
 from .ops.rasterize import make_mesh_arrays
+from .parallel.sharding import pad_hypotheses
 
 
 class PendingPose:
@@ -83,7 +87,7 @@ class FoundationPose:
                  scorer: ScorePredictor = None, refiner: PoseRefinePredictor = None,
                  device=None, debug=0, debug_dir="debug/fp", prune_to=None, coarse_hw=(96, 96),
                  prune_schedule=None, track_crop=True, polish_top=0, polish_iters=2,
-                 depth_polish=True, track_polish=True, plain_raster=False):
+                 depth_polish=True, track_polish=True, plain_raster=False, device_mesh=None):
         """@prune_to: keep this many hypotheses after 2 coarse refine
         iterations over the full grid at @coarse_hw (None: no pruning).
         @prune_schedule: (iters, keep) coarse stages in place of prune_to's
@@ -98,8 +102,12 @@ class FoundationPose:
         refiner's crops to {@debug_dir}/vis_refiner.png and tracks full
         frames (no upload crop).
         @plain_raster: render every hypothesis through the raster kernel's
-        plain PyTorch version instead of the kernel (a comparison run)."""
+        plain PyTorch version instead of the kernel (a comparison run).
+        @device_mesh: a `parallel/sharding.py` mesh; register goes through
+        the staged path with the hypotheses split across its ranks (every
+        rank calls register on the same frame)."""
         self.device = resolve_device(device)
+        self.device_mesh = device_mesh
         self.debug = debug
         self.debug_dir = debug_dir
         self.plain_raster = bool(plain_raster)
@@ -254,7 +262,7 @@ class FoundationPose:
             pose[:3, 3] = self.guess_translation(depth=depth_np, mask=ob_mask, K=K)
             return pose
         poses = self.generate_random_pose_hypo(K=K, rgb=rgb, depth=depth_np, mask=ob_mask)
-        if self.debug >= 2:
+        if self.debug >= 2 or self.device_mesh is not None:
             return self._register_staged(K, rgb, depth_t, depth_np, ob_mask, poses, iteration)
         ref, sc = self.refiner, self.scorer
         score_hw = tuple(sc.cfg["input_resize"])
@@ -287,17 +295,28 @@ class FoundationPose:
         self.scores = scores_np
         return poses_np[0] @ self.get_tf_to_centered_mesh()
 
+    def _pad(self, poses):
+        """(@poses padded to the mesh's data axis, their count), as JAX's
+        shard_hypotheses pads them; unchanged without a mesh."""
+        if self.device_mesh is None:
+            return poses, len(poses)
+        padded, n = pad_hypotheses(torch.as_tensor(poses, dtype=torch.float32), self.device_mesh)
+        return padded.numpy(), n
+
     def _register_staged(self, K, rgb, depth_t, depth_np, ob_mask, poses, iteration):
         """The JAX engine's staged register: the cascade's stages as separate
         refiner and scorer calls (prune schedule, final refine and score,
-        cascade polish), ranked on the host, then the depth polish."""
+        cascade polish), ranked on the host, then the depth polish.  With a
+        mesh each stage's hypotheses are padded as JAX pads them and split
+        across the ranks; the gathered scores rank them on every rank alike."""
         logging.info("register: staged path")
         common = dict(mesh=self.mesh, mesh_tensors=self.mesh_tensors, rgb=rgb, depth=depth_t,
                       K=K, glctx=None, mesh_diameter=self.diameter,
-                      backface_cull=self.backface_cull, plain_raster=self.plain_raster)
+                      backface_cull=self.backface_cull, plain_raster=self.plain_raster,
+                      device_mesh=self.device_mesh)
         xyz_map = depth2xyzmap(depth_t, torch.as_tensor(K, dtype=torch.float32,
                                                         device=self.device))
-        n_hypo = len(poses)
+        poses, n_hypo = self._pad(poses)
         schedule = self.prune_schedule
         if schedule is None and self.prune_to and self.prune_to < len(poses) and iteration > 2:
             schedule = ((2, self.prune_to),)  # 2 iterations on the full grid, keep the best
@@ -310,12 +329,11 @@ class FoundationPose:
             coarse_scores, _ = self.scorer.predict(ob_in_cams=coarse, out_hw=self.coarse_hw,
                                                    **common)
             keep = np.argsort(-coarse_scores.cpu().numpy()[:n_hypo])[:keep_k]
-            poses = coarse.cpu().numpy()[keep]
-            n_hypo = len(poses)
+            poses, n_hypo = self._pad(coarse.cpu().numpy()[keep])
             iteration = iteration - stage_iters
         poses, vis = self.refiner.predict(ob_in_cams=poses, xyz_map=xyz_map, iteration=iteration,
-                                          get_vis=True, **common)
-        if vis is not None:
+                                          get_vis=self.debug >= 2, **common)
+        if vis is not None and (self.device_mesh is None or self.device_mesh.rank == 0):
             os.makedirs(self.debug_dir, exist_ok=True)
             write_png_rgb8(f"{self.debug_dir}/vis_refiner.png", vis)
         scores, _ = self.scorer.predict(ob_in_cams=poses, **common)
@@ -325,11 +343,12 @@ class FoundationPose:
             # extra refine iterations on the best few, ranked alongside the
             # originals (the fused cascade's polish)
             top = np.argsort(-scores_np)[: self.polish_top]
-            cand, _ = self.refiner.predict(ob_in_cams=poses_np[top], xyz_map=xyz_map,
+            cand, n_cand = self._pad(poses_np[top])
+            cand, _ = self.refiner.predict(ob_in_cams=cand, xyz_map=xyz_map,
                                            iteration=self.polish_iters, get_vis=False, **common)
             cand_scores, _ = self.scorer.predict(ob_in_cams=cand, **common)
-            poses_np = np.concatenate([cand.cpu().numpy(), poses_np])
-            scores_np = np.concatenate([cand_scores.cpu().numpy(), scores_np])
+            poses_np = np.concatenate([cand.cpu().numpy()[:n_cand], poses_np])
+            scores_np = np.concatenate([cand_scores.cpu().numpy()[:n_cand], scores_np])
         ids = np.argsort(-scores_np)
         poses_np = poses_np[ids]
         logging.info(f"sorted scores (top5): {scores_np[ids][:5]}")

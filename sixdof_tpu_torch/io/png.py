@@ -12,6 +12,10 @@ with the system C compiler at first use; without one, decoding raises).
 Adam7-interlaced files raise.  `read_png` returns what OpenCV returns for
 ``IMREAD_UNCHANGED``: (H,W) grey, (H,W,3) BGR, or (H,W,4) BGRA, uint8 or
 uint16.
+
+PNGs held in memory (the H5 pose-pair layout keeps them as byte blobs,
+`io/h5_dataset.py`) go through `encode_png` and `decode_png`, which follow
+``imageio.v2`` instead: RGB(A) in the file's channel order.
 """
 from __future__ import annotations
 
@@ -88,17 +92,17 @@ def _samples(rows, width, bit_depth, ch):
     return (bits * weights).sum(axis=-1, dtype=np.uint8)[:, :width, None]
 
 
-def read_png(path):
-    """Decode a PNG file as ``cv2.imread(path, cv2.IMREAD_UNCHANGED)`` does."""
-    with open(path, "rb") as f:
-        data = f.read()
+def _decode(name, data):
+    """The samples of the PNG bytes @data in the file's channel order, a
+    palette expanded to RGB (RGBA with a `tRNS` chunk); returns (image
+    (H,W,ch), colour type, bit depth, the tRNS body or None)."""
     (width, height, bit_depth, color_type, _, _, interlace), idat, plte, trns = \
-        _chunks(path, data)
+        _chunks(name, data)
     if bit_depth not in _DEPTHS.get(color_type, ()):
-        raise ValueError(f"{path}: invalid PNG colour type {color_type} at bit depth "
+        raise ValueError(f"{name}: invalid PNG colour type {color_type} at bit depth "
                          f"{bit_depth}")
     if interlace:
-        raise NotImplementedError(f"{path}: an Adam7-interlaced PNG; only non-interlaced "
+        raise NotImplementedError(f"{name}: an Adam7-interlaced PNG; only non-interlaced "
                                   "PNGs are read")
     ch = _CHANNELS[color_type]
     stride = (width * ch * bit_depth + 7) // 8
@@ -106,7 +110,7 @@ def read_png(path):
                              max(1, ch * bit_depth // 8)), width, bit_depth, ch)
     if color_type == 3:  # palette -> RGB(A), entries past PLTE's end black
         if plte is None:
-            raise ValueError(f"{path}: a palette PNG without a PLTE chunk")
+            raise ValueError(f"{name}: a palette PNG without a PLTE chunk")
         table = np.zeros((256, 4), np.uint8)
         table[:, 3] = 255
         pal = np.frombuffer(plte, np.uint8)[: len(plte) // 3 * 3].reshape(-1, 3)[:256]
@@ -115,7 +119,15 @@ def read_png(path):
             alpha = np.frombuffer(trns, np.uint8)[:256]
             table[: len(alpha), 3] = alpha
         img = table[img[..., 0]][..., : 4 if trns is not None else 3]
-    elif color_type == 0:
+    return img, color_type, bit_depth, trns
+
+
+def read_png(path):
+    """Decode a PNG file as ``cv2.imread(path, cv2.IMREAD_UNCHANGED)`` does."""
+    with open(path, "rb") as f:
+        data = f.read()
+    img, color_type, bit_depth, trns = _decode(path, data)
+    if color_type == 0:
         img = img[..., 0]
         if bit_depth < 8:
             img = img * np.uint8(255 // ((1 << bit_depth) - 1))
@@ -130,6 +142,20 @@ def read_png(path):
     if img.shape[-1] == 3:
         return np.ascontiguousarray(img[..., ::-1])  # RGB -> BGR
     return np.ascontiguousarray(img[..., [2, 1, 0, 3]])  # RGBA -> BGRA
+
+
+def decode_png(data):
+    """Decode PNG bytes in memory as ``imageio.v2.imread`` does for the
+    kinds `encode_png` writes: (H,W) grey (uint8, or uint16 for 16-bit),
+    (H,W,3) RGB, (H,W,4) RGBA, (H,W,2) grey+alpha, palettes expanded to
+    RGB(A); channels in the file's order, not OpenCV's BGR."""
+    img, color_type, bit_depth, _ = _decode("PNG bytes", bytes(data))
+    if bit_depth < 8 and color_type != 3:
+        raise NotImplementedError(f"a {bit_depth}-bit PNG: in memory, 8- and 16-bit "
+                                  "samples are decoded")
+    if color_type == 0:
+        return np.ascontiguousarray(img[..., 0])
+    return np.ascontiguousarray(img)
 
 
 def read_png_color(path):
@@ -149,49 +175,61 @@ def _chunk(ctype, body):
             + struct.pack(">I", zlib.crc32(ctype + body) & 0xFFFFFFFF))
 
 
-def _write_png8(path, img, color_type):
-    """Write an 8-bit image (no row filter; colour type 0, 2 or 6)."""
-    h, w = img.shape[:2]
-    stride = w * _CHANNELS[color_type]
-    rows = np.zeros((h, stride + 1), dtype=np.uint8)  # filter type 0 before each row
-    rows[:, 1:] = img.reshape(h, stride)
-    _write(path, w, h, 8, color_type, rows)
-
-
-def _write(path, w, h, bit_depth, color_type, rows):
+def _png_bytes(w, h, bit_depth, color_type, rows):
     """A PNG of @rows (each a filter byte and the row), deflated at zlib
     level 1, OpenCV's default for PNG."""
-    data = (_SIG + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, bit_depth, color_type, 0, 0,
-                                                0))
+    return (_SIG + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, bit_depth, color_type, 0, 0, 0))
             + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 1)) + _chunk(b"IEND", b""))
+
+
+def encode_png(img):
+    """PNG bytes of an image, no row filter: (H,W) uint8 or uint16 grey,
+    (H,W,2) uint8 grey+alpha, (H,W,3) uint8 RGB or (H,W,4) uint8 RGBA,
+    channels in that order (what ``imageio.v2.imwrite`` writes for the same
+    array, and `decode_png` reads back)."""
+    img = np.ascontiguousarray(img)
+    if img.ndim == 2 and img.dtype == np.uint16:
+        h, w = img.shape
+        rows = np.zeros((h, 2 * w + 1), dtype=np.uint8)  # filter type 0 before each row
+        rows[:, 1:] = img.astype(">u2").view(np.uint8).reshape(h, 2 * w)
+        return _png_bytes(w, h, 16, 0, rows)
+    color_type = {2: 0, 3: {2: 4, 3: 2, 4: 6}.get(img.shape[-1])}.get(img.ndim)
+    if img.dtype != np.uint8 or color_type is None:
+        raise ValueError(f"expected a (H,W) uint8/uint16 or (H,W,2|3|4) uint8 image, got "
+                         f"{img.shape} {img.dtype}")
+    h, w = img.shape[:2]
+    stride = w * _CHANNELS[color_type]
+    rows = np.zeros((h, stride + 1), dtype=np.uint8)
+    rows[:, 1:] = img.reshape(h, stride)
+    return _png_bytes(w, h, 8, color_type, rows)
+
+
+def _write(path, img):
     with open(path, "wb") as f:
-        f.write(data)
+        f.write(encode_png(img))
 
 
 def write_png_gray16(path, img):
     """Write a (H,W) uint16 image as a 16-bit greyscale PNG (a depth frame in
     millimetres, as ``cv2.imwrite`` writes one)."""
-    img = np.ascontiguousarray(img)
+    img = np.asarray(img)
     if img.ndim != 2 or img.dtype != np.uint16:
         raise ValueError(f"expected a (H,W) uint16 image, got {img.shape} {img.dtype}")
-    h, w = img.shape
-    rows = np.zeros((h, 2 * w + 1), dtype=np.uint8)  # filter type 0 before each row
-    rows[:, 1:] = img.astype(">u2").view(np.uint8).reshape(h, 2 * w)
-    _write(path, w, h, 16, 0, rows)
+    _write(path, img)
 
 
 def write_png_gray8(path, img):
     """Write a (H,W) uint8 image as an 8-bit greyscale PNG."""
-    img = np.ascontiguousarray(img)
+    img = np.asarray(img)
     if img.ndim != 2 or img.dtype != np.uint8:
         raise ValueError(f"expected a (H,W) uint8 image, got {img.shape} {img.dtype}")
-    _write_png8(path, img, 0)
+    _write(path, img)
 
 
 def write_png_rgb8(path, img):
     """Write a (H,W,3) RGB or (H,W,4) RGBA uint8 image as an 8-bit PNG in
     that channel order (``cv2.imwrite`` of the array reversed to BGR)."""
-    img = np.ascontiguousarray(img)
+    img = np.asarray(img)
     if img.ndim != 3 or img.shape[2] not in (3, 4) or img.dtype != np.uint8:
         raise ValueError(f"expected a (H,W,3|4) uint8 image, got {img.shape} {img.dtype}")
-    _write_png8(path, img, 2 if img.shape[2] == 3 else 6)
+    _write(path, img)

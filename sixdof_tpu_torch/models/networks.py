@@ -212,14 +212,24 @@ class ScoreNetMultiPair(nn.Module):
         self.att_cross = MultiheadAttention(512, 4)
         self.linear = Linear32(512, 1)
 
-    def forward(self, A, B, L):
-        """A,B: (n*L,H,W,c_in) NHWC; returns {"score_logit": (n, L)}."""
+    def features(self, A, B):
+        """The per-hypothesis part: the trunk, `att` and the token mean.
+        A,B: (N,H,W,c_in) NHWC; returns (N, 512)."""
         tokens = _trunk(self.encoderA, self.encoderAB, A, B)
         tokens = tokens + _position_embedding(tokens.shape[1], 512, tokens.device).to(tokens.dtype)
-        feats = self.att(tokens).mean(dim=1)
-        x = feats.reshape(A.shape[0] // L, L, -1)
-        x = self.att_cross(x)
-        return {"score_logit": self.linear(x)[..., 0]}
+        return self.att(tokens).mean(dim=1)
+
+    def cross(self, feats, L):
+        """The cross-hypothesis part: `att_cross` over each group of L
+        features, then `linear`.  feats: (n*L, 512); returns (n, L).  Every
+        score depends on its whole group, so a sharded scorer gathers the
+        features of all its ranks before this part."""
+        x = self.att_cross(feats.reshape(feats.shape[0] // L, L, -1))
+        return self.linear(x)[..., 0]
+
+    def forward(self, A, B, L):
+        """A,B: (n*L,H,W,c_in) NHWC; returns {"score_logit": (n, L)}."""
+        return {"score_logit": self.cross(self.features(A, B), L)}
 
 
 # flax's truncated-normal variance scaling draws from N(0, 1) cut at +-2 and

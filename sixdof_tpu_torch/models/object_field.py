@@ -33,6 +33,13 @@ feed JAX's own draws to the bodies.  The field (`FieldParams`) is an
 over.  Checkpoints are `.npz` files holding the same tree as the JAX
 package's orbax checkpoints.  Entry points run on the card unless the
 caller passes `device="cpu"`.
+
+`ObjectFieldRunner.step(draws, device_mesh=mesh)` is the data-parallel step
+(parallel/sharding.py, one process a rank): every rank makes the same draws,
+runs the loss and backward of its slice of the ray minibatch
+(`loss_and_grad`, through `shard_field_rays`; the hash table's scatter-add
+stays per rank), the gradients are averaged across the ranks, and every
+rank takes the same Adam step.
 """
 from __future__ import annotations
 
@@ -48,6 +55,7 @@ import torch.nn as nn
 from scipy import ndimage
 
 from ..device import resolve_device
+from ..parallel.sharding import all_gather, average_gradients, shard_field_rays
 
 BAD_DEPTH = 99.0
 BAD_COLOR = 0
@@ -515,6 +523,29 @@ def make_loss_fn(cfg_ref: ObjectFieldConfig, spec_ref: HashGridSpec, sc: float):
     return loss_fn
 
 
+def loss_and_grad(params: FieldParams, loss_fn, batch, draws, device_mesh=None):
+    """The loss of @loss_fn on the ray minibatch @batch (R,11) with its
+    sample draws, the gradients left in @params (replacing any earlier
+    ones).  @device_mesh: this rank takes its slice of the rays and of their
+    draws (R must divide the data axis), and the gradients, the loss and
+    its parts are averaged across the ranks.  Returns (loss, parts)."""
+    if device_mesh is not None:
+        batch, n = shard_field_rays(batch, device_mesh)
+        rows = device_mesh.rows(n)
+        draws = {k: v[rows] for k, v in draws.items()}
+    for p in params.parameters():
+        p.grad = None
+    loss, parts = loss_fn(params, batch, draws)
+    loss.backward()
+    out = {"loss": loss.detach(), **{k: v.detach() for k, v in parts.items()}}
+    if device_mesh is not None:
+        average_gradients(params.parameters(), device_mesh)
+        means = all_gather(torch.stack(list(out.values()))[None], device_mesh).mean(dim=0)
+        out = dict(zip(out, means))
+    loss = out.pop("loss")
+    return loss, out
+
+
 def step_draws(cfg: ObjectFieldConfig, n_rays, generator, device):
     """One training step's draws: the minibatch rows (`idx`, uniform over
     the @n_rays rays of the table) and sample_z_vals' draws."""
@@ -594,17 +625,16 @@ class ObjectFieldRunner:
         return step_draws(self.cfg, self.rays_on_device().shape[0], self.generator,
                           self.device)
 
-    def loss_and_grad(self, draws):
-        """The loss on @draws' minibatch, gradients left in the parameters."""
-        batch = self.rays_on_device()[draws["idx"]]
-        self.opt.zero_grad(set_to_none=True)
-        loss, parts = self._loss_fn(self.params, batch, draws)
-        loss.backward()
-        return loss.detach(), {k: v.detach() for k, v in parts.items()}
+    def loss_and_grad(self, draws, device_mesh=None):
+        """The loss on @draws' minibatch, gradients left in the parameters
+        (`loss_and_grad`, data-parallel over @device_mesh's ranks)."""
+        return loss_and_grad(self.params, self._loss_fn, self.rays_on_device()[draws["idx"]],
+                             draws, device_mesh)
 
-    def step(self, draws):
-        """One Adam step on @draws; returns (loss, parts) on the device."""
-        loss, parts = self.loss_and_grad(draws)
+    def step(self, draws, device_mesh=None):
+        """One Adam step on @draws (data-parallel over @device_mesh's ranks
+        when given); returns (loss, parts) on the device."""
+        loss, parts = self.loss_and_grad(draws, device_mesh)
         self.opt.step()
         self.global_step += 1
         return loss, parts

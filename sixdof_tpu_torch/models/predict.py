@@ -19,6 +19,13 @@ Every hypothesis render goes through `ops/rasterize.py::render_batch`, so
 through raster kernel K1 on the card; `plain_raster=True` routes them
 through its plain PyTorch version instead.  Geometry is fp32; the networks
 run under bf16 autocast unless a predictor is built with float32.
+
+With a `device_mesh` (parallel/sharding.py) the hypothesis axis is split
+across the ranks, as JAX's sharded hypothesis batch is: every rank passes
+the whole set, refines or scores its slice (rendered through K1) and gets
+the whole result back.  The scorer gathers the per-hypothesis features
+before its cross-hypothesis attention, so each score is taken against the
+whole set, as GSPMD's program takes it.
 """
 from __future__ import annotations
 
@@ -37,6 +44,7 @@ from ..ops.icp import icp_point_to_plane
 from ..ops.lie import rotation_6d_to_matrix, so3_exp_map, so3_log_map
 from ..ops.rasterize import MeshArrays, render_batch
 from ..ops.warp import warp_crop_batch
+from ..parallel.sharding import all_gather, shard_hypotheses
 from . import checkpoint
 from .networks import RefineNet, ScoreNetMultiPair
 from .weights import refine_state_dict, score_state_dict
@@ -149,11 +157,16 @@ def _deepim_trans_delta(trans, poses, tf_to_crops, K, out_hw):
 def refine_poses(model, mesh: MeshArrays, poses, rgb01, xyz_map, K, mesh_diameter, crop_ratio,
                  trans_normalizer, rot_normalizer, iterations: int, out_hw=(160, 160),
                  normalize_xyz=False, rot_rep="axis_angle", backface_cull=False, occ_sub=False,
-                 plain_raster=False, compute_dtype=torch.bfloat16, trans_rep="tracknet"):
+                 plain_raster=False, compute_dtype=torch.bfloat16, trans_rep="tracknet",
+                 device_mesh=None):
     """`iterations` render -> compare -> update refinement steps.  The
     translation is decoded as @trans_rep: "tracknet" (tanh-bounded by
-    trans_normalizer, raw when xyz inputs are normalized) or "deepim"."""
+    trans_normalizer, raw when xyz inputs are normalized) or "deepim".
+    @device_mesh: each rank refines its slice, and the poses are gathered."""
     poses = poses.float()
+    n = poses.shape[0]
+    if device_mesh is not None:
+        poses, _ = shard_hypotheses(poses, device_mesh)
     for _ in range(iterations):
         A, B, tf_to_crops, _ = _make_AB(
             mesh, poses, rgb01, xyz_map, K, crop_ratio, mesh_diameter, out_hw, normalize_xyz,
@@ -177,6 +190,8 @@ def refine_poses(model, mesh: MeshArrays, poses, rgb01, xyz_map, K, mesh_diamete
         if normalize_xyz:  # a global post-scale, whatever the translation form
             trans_delta = trans_delta * (mesh_diameter / 2.0)
         poses = egocentric_delta_pose_to_pose(poses, trans_delta, rot_mat_delta)
+    if device_mesh is not None:
+        poses = all_gather(poses, device_mesh)[:n]
     return poses
 
 
@@ -207,19 +222,29 @@ def _depth_alignment_score(A, B, rend, poses, mesh_diameter):
 @torch.no_grad()
 def score_poses(model, mesh: MeshArrays, poses, rgb01, xyz_map, K, mesh_diameter, crop_ratio,
                 out_hw=(160, 160), normalize_xyz=False, mode="network", backface_cull=False,
-                plain_raster=False, compute_dtype=torch.bfloat16):
-    """Single-pass hypothesis scoring: 'network', 'depth' or 'hybrid' (sum)."""
+                plain_raster=False, compute_dtype=torch.bfloat16, device_mesh=None):
+    """Single-pass hypothesis scoring: 'network', 'depth' or 'hybrid' (sum).
+    @device_mesh: each rank takes the features and depth scores of its
+    slice; they are gathered, then the cross-hypothesis part scores the
+    whole set on every rank."""
+    n = poses.shape[0]
+    if device_mesh is not None:
+        poses, _ = shard_hypotheses(poses, device_mesh)
+
+    def gather(x):  # every rank's rows, without the padding
+        return x if device_mesh is None else all_gather(x, device_mesh)[:n]
+
     A, B, _, rend = _make_AB(mesh, poses, rgb01, xyz_map, K, crop_ratio, mesh_diameter, out_hw,
                              normalize_xyz, invalid_z_thresh=0.1, backface_cull=backface_cull,
                              plain_raster=plain_raster)
-    score = torch.zeros(poses.shape[0], dtype=torch.float32, device=poses.device)
+    score = torch.zeros(n, dtype=torch.float32, device=poses.device)
     if mode in ("network", "hybrid"):
         with network_autocast(poses.device, compute_dtype):
-            out = model(A, B, L=poses.shape[0])
+            logits = model.cross(gather(model.features(A, B)), L=n)
         # the winning pass gets +100, like scores_global[global_ids] = scores+100
-        score = score + out["score_logit"].reshape(-1).float() + 100.0
+        score = score + logits.reshape(-1).float() + 100.0
     if mode in ("depth", "hybrid"):
-        score = score + _depth_alignment_score(A, B, rend, poses, mesh_diameter)
+        score = score + gather(_depth_alignment_score(A, B, rend, poses, mesh_diameter))
     return score
 
 
@@ -425,11 +450,13 @@ class PoseRefinePredictor(_PredictorBase):
 
     def predict(self, rgb, depth, K, ob_in_cams, xyz_map, normal_map=None, get_vis=False,
                 mesh=None, mesh_tensors: MeshArrays = None, glctx=None, mesh_diameter=None,
-                iteration=5, out_hw=None, backface_cull=None, plain_raster=False):
+                iteration=5, out_hw=None, backface_cull=None, plain_raster=False,
+                device_mesh=None):
         """@iteration refine steps of the poses @ob_in_cams (N,4,4) against
         the frame (@rgb (H,W,3) uint8 or float, @xyz_map (H,W,3)) at @out_hw
         (default the cfg's input_resize).  @plain_raster: render through
-        K1's plain version (a comparison run).  Returns (poses (N,4,4)
+        K1's plain version (a comparison run).  @device_mesh: the poses
+        split across its ranks (`refine_poses`).  Returns (poses (N,4,4)
         tensor, vis: the crop grid of _make_vis when @get_vis, else None)."""
         dev = self.device
         rgb01 = to_rgb01(rgb, dev)
@@ -447,7 +474,8 @@ class PoseRefinePredictor(_PredictorBase):
             backface_cull=bool(self.cfg.get("backface_cull", False)
                                if backface_cull is None else backface_cull),
             occ_sub=self.cfg.get("occ_sub", False), plain_raster=plain_raster,
-            compute_dtype=self.compute_dtype, trans_rep=self.cfg["trans_rep"])
+            compute_dtype=self.compute_dtype, trans_rep=self.cfg["trans_rep"],
+            device_mesh=device_mesh)
         vis = None
         if get_vis:
             vis = self._make_vis(mesh_tensors, poses, rgb01, xyz, K, mesh_diameter,
@@ -493,12 +521,14 @@ class ScorePredictor(_PredictorBase):
 
     def predict(self, rgb, depth, K, ob_in_cams, normal_map=None, get_vis=False, mesh=None,
                 mesh_tensors: MeshArrays = None, glctx=None, mesh_diameter=None,
-                out_hw=None, backface_cull=None, plain_raster=False):
+                out_hw=None, backface_cull=None, plain_raster=False, device_mesh=None):
         """Scores of the poses @ob_in_cams (N,4,4) against the frame (@rgb,
         @depth in metres, already filtered) at @out_hw, in the cfg's
         score_mode ("network" where the cfg has none, as in the JAX
         predictor).  More than the cfg's max_batch poses go through
-        `_tournament`.  Returns (scores (N,) tensor, None)."""
+        `_tournament`.  @device_mesh: every call of the scorer (each chunk
+        of the tournament) split across its ranks (`score_poses`), so every
+        rank keeps the same winners.  Returns (scores (N,) tensor, None)."""
         dev = self.device
         rgb01 = to_rgb01(rgb, dev)
         K = torch.as_tensor(K, dtype=torch.float32, device=dev)
@@ -513,7 +543,8 @@ class ScorePredictor(_PredictorBase):
                 mode=self.cfg.get("score_mode", "network"),
                 backface_cull=bool(self.cfg.get("backface_cull", False)
                                    if backface_cull is None else backface_cull),
-                plain_raster=plain_raster, compute_dtype=self.compute_dtype)
+                plain_raster=plain_raster, compute_dtype=self.compute_dtype,
+                device_mesh=device_mesh)
 
         max_batch = self.cfg.get("max_batch")
         n = len(ob_in_cams)

@@ -22,6 +22,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..parallel.sharding import all_gather, shard_rays, shard_restarts
 from .lie import so3_exp_map
 from .raytrace import ray_mesh_intersect
 
@@ -144,20 +145,33 @@ def icp_batch_with_eval(src, src_mask, tgt, tgt_normals, tgt_mask, init_tfs, max
 
 def improve_and_raytrace(src, src_mask, tgt, tgt_normals, tgt_mask, init_tfs, max_dists,
                          eval_tf, eval_dist, mesh_tri, mesh_tri_mask, ray_dirs, ray_mask,
-                         inv_color_to_depth, max_iter=30, plain_raytrace=False):
+                         inv_color_to_depth, max_iter=30, plain_raytrace=False,
+                         device_mesh=None):
     """One capture event as one device program: restart ICP + the initial
     transform's evaluation + the best pick + the defect ray trace against the
     re-posed mesh.
 
     @mesh_tri: (T,3,3) model-frame mm triangles; @ray_dirs: (M,3) colour-frame
     rays; @inv_color_to_depth: (4,4); @plain_raytrace: K2's plain version.
+    @device_mesh: each rank runs its slice of the restarts and of the rays
+    (through K2), padded as `shard_restarts` / `shard_rays` pad them, and
+    the transforms, fitness, RMSE and hit distances are gathered before the
+    best pick: K and M are then the padded counts (a padded duplicate may
+    win a tie; the chosen pose is the same).
     Returns (tf_all (K+1,4,4), fit (K+1,), rmse (K+1,), best index (),
     t_hit (M,))."""
+    if device_mesh is not None:
+        init_tfs, max_dists, _ = shard_restarts(init_tfs, max_dists, device_mesh)
+        ray_dirs, ray_mask, _ = shard_rays(ray_dirs, ray_mask, device_mesh)
+
+    def gather(x):  # every rank's rows, the padding kept
+        return x if device_mesh is None else all_gather(x, device_mesh)
+
     res, f0, r0 = icp_batch_with_eval(src, src_mask, tgt, tgt_normals, tgt_mask, init_tfs,
                                       max_dists, eval_tf, eval_dist, max_iter=max_iter)
-    fit = torch.cat([res.fitness, f0.reshape(1)])
-    rmse = torch.cat([res.inlier_rmse, r0.reshape(1)])
-    tf_all = torch.cat([res.transformation, eval_tf.reshape(1, 4, 4).to(fit.dtype)])
+    fit = torch.cat([gather(res.fitness), f0.reshape(1)])
+    rmse = torch.cat([gather(res.inlier_rmse), r0.reshape(1)])
+    tf_all = torch.cat([gather(res.transformation), eval_tf.reshape(1, 4, 4).to(fit.dtype)])
 
     valid = (fit > 0) & (rmse > 0)
     # improve_result's np.lexsort((rmse, -fit)) — fitness descending, then
@@ -173,8 +187,8 @@ def improve_and_raytrace(src, src_mask, tgt, tgt_normals, tgt_mask, init_tfs, ma
     M = torch.matmul(inv_color_to_depth, obj_in_scene)
     tri_w = torch.einsum("ij,tkj->tki", M[:3, :3], mesh_tri) + M[:3, 3]
     origins = torch.zeros_like(ray_dirs)
-    t_hit = ray_mesh_intersect(origins, ray_dirs, ray_mask, tri_w, mesh_tri_mask,
-                               plain=plain_raytrace)
+    t_hit = gather(ray_mesh_intersect(origins, ray_dirs, ray_mask, tri_w, mesh_tri_mask,
+                                      plain=plain_raytrace))
     return tf_all, fit, rmse, best, t_hit
 
 
@@ -195,7 +209,7 @@ def icp_polish_two_pass(src, src_mask, tgt, tgt_normals, tgt_mask, init_tf,
 def capture_from_pose(src, src_mask, tgt, tgt_normals, tgt_mask, pose_dev, tf_to_centered,
                       color_to_depth, noise_tfs, max_dists, eval_dist, mesh_tri, mesh_tri_mask,
                       ray_dirs, ray_mask, inv_color_to_depth, max_iter=30,
-                      plain_raytrace=False):
+                      plain_raytrace=False, device_mesh=None):
     """Capture event seeded from the DEVICE tracked pose: the restart seeds
     (mm scaling, extrinsic compose, rigid inverse, noise) are computed on the
     device, so a capture frame never waits for the tracked pose on the host.
@@ -218,4 +232,4 @@ def capture_from_pose(src, src_mask, tgt, tgt_normals, tgt_mask, pose_dev, tf_to
     return improve_and_raytrace(
         src, src_mask, tgt, tgt_normals, tgt_mask, init_tfs, max_dists, eval_tf, eval_dist,
         mesh_tri, mesh_tri_mask, ray_dirs, ray_mask, inv_color_to_depth, max_iter,
-        plain_raytrace)
+        plain_raytrace, device_mesh)

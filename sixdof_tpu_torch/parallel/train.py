@@ -1,7 +1,6 @@
 """Training: render-and-compare refiner and scorer fitting on synthetic pairs.
 
-Port of `sixdof_tpu/parallel/train.py` (single device; the JAX trainers'
-`device_mesh` sharding is not ported).  Each step generates its batch on
+Port of `sixdof_tpu/parallel/train.py`.  Each step generates its batch on
 the device: random ground-truth poses, bounded perturbations, both crops of
 every pair rendered by `ops/rasterize.py::render_batch` (through raster
 kernel K1 for CUDA tensors), a synthetic background, sensor noise, random
@@ -18,6 +17,15 @@ The JAX batch makers draw from a key.  Here each is split in two:
 So the same draws give the JAX package's batch.  The batch makers run
 under `torch.no_grad()` (the JAX loss closes over the batch, and no raster
 kernel has a gradient); the networks train in float32 without autocast.
+
+A trainer given a `device_mesh` (parallel/sharding.py, one process a rank)
+trains data-parallel, the `data` axis of the JAX trainers: every rank makes
+the same draws from the same generator, takes its slice of them (the
+refiner's rows, the scorer's whole scenes) and renders only that slice
+through K1; the loss is the mean over the slice, and the gradients are
+averaged across the ranks before Adam, which stays replicated.  The JAX
+trainers' `model` axis (parameters placed by `param_shardings`) is not
+ported yet.
 """
 from __future__ import annotations
 
@@ -38,6 +46,7 @@ from ..ops.geometry import compute_crop_window_tf_batch, egocentric_delta_pose_t
 from ..ops.lie import so3_exp_map
 from ..ops.rasterize import MeshArrays, render_batch
 from .augment import _normal, _pool, _uniform, maybe_degrade_pair, pair_draws, resize_linear
+from .sharding import all_gather, average_gradients
 
 
 class TrainConfig(NamedTuple):
@@ -118,6 +127,15 @@ def scorer_draws(gen: torch.Generator, cfg: TrainConfig, n_scenes: int = 4):
     return dict(poses=_pose_draws(gen, n_scenes, cfg.z_range),
                 dt=_uniform(gen, (n, 3), -1.0, 1.0), dw=_uniform(gen, (n, 3), -1.0, 1.0),
                 ang=_uniform(gen, (n,), 0.0, 2 * math.pi), **_scene_draws(gen, n, cfg))
+
+
+def slice_draws(draws, rows):
+    """@draws with every tensor cut to @rows along its first axis."""
+    if isinstance(draws, dict):
+        return {k: slice_draws(v, rows) for k, v in draws.items()}
+    if isinstance(draws, list):
+        return [slice_draws(v, rows) for v in draws]
+    return draws[rows]
 
 
 # ------------------------------------------------------------------- body --
@@ -390,13 +408,18 @@ class _Trainer:
     name = ""
 
     def __init__(self, model, mesh_arrays: MeshArrays, K, mesh_diameter,
-                 cfg: TrainConfig = TrainConfig(), params=None, seed=0, _shared=None):
+                 cfg: TrainConfig = TrainConfig(), params=None, seed=0, device_mesh=None,
+                 _shared=None):
         self.model = model
         self.mesh_arrays = mesh_arrays
         self.device = mesh_arrays.pos.device
         self.K = torch.as_tensor(np.asarray(K), dtype=torch.float32, device=self.device)
         self.mesh_diameter = float(mesh_diameter)
         self.cfg = cfg
+        self.device_mesh = device_mesh
+        if device_mesh is not None and self._units() % device_mesh.size:
+            raise ValueError(f"the {self.name} batch's {self._units()} {self._unit_name} do "
+                             f"not divide the data axis ({device_mesh.size})")
         if _shared is not None:
             self.optimizer = _shared
             return
@@ -413,30 +436,54 @@ class _Trainer:
     def sharing(self, mesh_arrays: MeshArrays, K, mesh_diameter):
         """A trainer on another object that steps this model and optimiser."""
         return type(self)(self.model, mesh_arrays, K, mesh_diameter, self.cfg,
-                          _shared=self.optimizer)
+                          device_mesh=self.device_mesh, _shared=self.optimizer)
+
+    def _local(self, draws):
+        """This rank's slice of a step's draws (all of them without a mesh)."""
+        if self.device_mesh is None:
+            return draws
+        return self._slice(draws, self.device_mesh.rows(self._units()))
+
+    def _slice(self, draws, rows):
+        return slice_draws(draws, rows)
 
     def step(self, gen: torch.Generator):
         """One step on a fresh batch from @gen; returns the loss as a 0-d
-        device tensor (no host synchronisation)."""
+        device tensor (no host synchronisation without a mesh)."""
         return self.update(self.batch(gen))
 
-    def update(self, batch):
-        """Forward, backward and the Adam update on @batch; returns the loss."""
+    def gradients(self, batch):
+        """Forward and backward on @batch, the gradients averaged across the
+        mesh's ranks; returns the loss, its mean across the ranks."""
         loss = self.loss(*batch)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        loss = loss.detach()
+        if self.device_mesh is not None:
+            average_gradients(self.model.parameters(), self.device_mesh)
+            loss = all_gather(loss.reshape(1), self.device_mesh).mean()
+        return loss
+
+    def update(self, batch):
+        """`gradients` and the Adam update on @batch; returns the loss."""
+        loss = self.gradients(batch)
         self.optimizer.step()
-        return loss.detach()
+        return loss
 
 
 class RefinerTrainer(_Trainer):
     """Trains RefineNet on synthetic perturbation pairs of one object."""
 
     name = "refiner"
+    _unit_name = "pairs"
+
+    def _units(self):
+        return self.cfg.batch_size
 
     def batch(self, gen):
-        return make_refiner_batch(refiner_draws(gen, self.cfg), self.mesh_arrays, self.K,
-                                  self.mesh_diameter, self.cfg)
+        """This rank's part of a batch drawn from @gen."""
+        return make_refiner_batch(self._local(refiner_draws(gen, self.cfg)), self.mesh_arrays,
+                                  self.K, self.mesh_diameter, self.cfg)
 
     def loss(self, A, B, target_dt, target_dw):
         return refiner_loss(self.model, A, B, target_dt, target_dw, self.cfg)
@@ -446,14 +493,27 @@ class ScorerTrainer(_Trainer):
     """Trains ScoreNetMultiPair on hypothesis ladders (4 scenes a step)."""
 
     name = "scorer"
+    _unit_name = "scenes"
     n_scenes = 4
+
+    def _units(self):
+        # the listwise loss works within each scene: shard whole scenes
+        return self.n_scenes
+
+    def _slice(self, draws, rows):
+        """Scenes @rows: the poses' rows, and the L hypotheses of each."""
+        L = self.cfg.n_hypotheses
+        hyp = slice(rows.start * L, rows.stop * L)
+        return dict(slice_draws({k: v for k, v in draws.items() if k != "poses"}, hyp),
+                    poses=slice_draws(draws["poses"], rows))
 
     def _init(self, model, gen):
         _self_biased_cross_attention_init(init_flax_style(model, gen))
 
     def batch(self, gen):
-        return make_scorer_batch(scorer_draws(gen, self.cfg, self.n_scenes), self.mesh_arrays,
-                                 self.K, self.mesh_diameter, self.cfg)
+        """This rank's scenes of a batch drawn from @gen."""
+        return make_scorer_batch(self._local(scorer_draws(gen, self.cfg, self.n_scenes)),
+                                 self.mesh_arrays, self.K, self.mesh_diameter, self.cfg)
 
     def loss(self, A, B, target, teacher):
         return scorer_loss(self.model, A, B, target, teacher, self.cfg.w_distill)

@@ -3,8 +3,10 @@ and K2 through their plain versions, the pose server twice on the bundled
 weights, the accuracy phase, the capture path and the run loop twice, the
 loop at --debug 2 and in viewer mode, the point-click path on a crust, the
 --icp registration, the trainer, the BOP campaign, the live-camera loop
-against a stand-in Kinect and the neural object field) and the kernels line
-has the keys the card run reports; a phase that fails stops the script before its result."""
+against a stand-in Kinect, the neural object field, the H5 path and the
+multi-device path on 2 gloo ranks of the CPU) and the kernels line has the
+keys the card run reports; a phase that fails stops the script before its
+result."""
 import json
 import os
 import sys
@@ -33,7 +35,8 @@ def test_chip_smoke_rehearsal_on_cpu(capsys):
     assert phases.index("pose") < phases.index("accuracy") < phases.index("capture") \
         < phases.index("debug") < phases.index("viewer") < phases.index("point_click") \
         < phases.index("icp_global") < phases.index("train_k1") < phases.index("train") \
-        < phases.index("bop") < phases.index("live") < phases.index("field")
+        < phases.index("bop") < phases.index("live") < phases.index("field") \
+        < phases.index("h5") < phases.index("multi")
     assert lines[-1] == {"kernels": kernels}
     assert [k["name"] for k in kernels] == ["raster_zbuffer", "ray_mesh_intersect"]
     for k in kernels:
@@ -151,6 +154,33 @@ def test_chip_smoke_rehearsal_on_cpu(capsys):
     assert all(field[k] > 0 for k in ("draw_ms", "forward_backward_ms", "adam_ms"))
     assert field["register_pose_finite"] and 0 < field["register_triangles"] <= 5000
     assert field["register_k1_launches"] == 0  # the CPU renders through the plain raster
+    # the H5 path: PNG blobs bit-equal, transform_batch on the "card" (the
+    # CPU here) and the CPU equal, the file written and read back (h5py is
+    # here)
+    h5 = next(x for x in lines if x.get("phase") == "h5")
+    assert h5["pairs"] == 2 and h5["ori"] == [540, 720] and h5["png_bit_equal"]
+    assert h5["rgb_bit_equal"] and h5["xyz_max_abs_diff"] == 0.0 and h5["select_by_indices_ok"]
+    assert h5["h5py"] and h5["open_h5"] == "written and read back equal"
+    assert all(h5[k] > 0 for k in ("png_round_trip_ms", "transform_ms", "png_bytes"))
+    # the multi-device path: 2 gloo ranks, every part against rank 0's
+    # unsharded run, the ranks agreeing
+    multi = next(x for x in lines if x.get("phase") == "multi")
+    assert multi["backend"] == "gloo" and multi["ranks_per_card"] == 2
+    assert not multi["measures_scaling"]
+    parts = multi["parts"]
+    assert list(parts) == ["register", "capture", "train", "field"]
+    for part in parts.values():
+        assert len(part["collective_s"]) == 2 and part["seconds"] > 0
+        assert part["k1_launches"] == part["k2_launches"] == [0, 0]  # plain versions here
+    reg, cap = parts["register"]["checks"], parts["capture"]["checks"]
+    assert reg["ranks_same_pose"] and reg["vs_unsharded_rot_deg"] <= chip_smoke.POSE_ROT_DEG_MAX
+    assert cap["ranks_same"] and cap["hits_same"] and cap["padded"] == [4, 588]
+    assert parts["capture"]["rays"] == 587 and cap["hits"] > 0
+    for name in ("refiner", "scorer"):
+        t = parts["train"]["checks"][name]
+        assert t["ranks_same_losses"] and t["first_grad_diff_of_max"] <= chip_smoke.MULTI_GRAD_REL
+        assert len(parts["train"][name]["losses"]) == chip_smoke.MULTI_TRAIN_STEPS
+    assert parts["field"]["checks"]["field"]["loss_max_rel_diff"] <= chip_smoke.MULTI_LOSS_RTOL
     assert kernels[0]["launches"] == kernels[1]["launches"] == 0
 
 

@@ -44,6 +44,9 @@ print("LIVE", all(m in sys.modules for m in ("sixdof_tpu_torch.io.bop_reader",
                                              "sixdof_tpu_torch.io.kinect_tools",
                                              "sixdof_tpu_torch.utils.logging_utils")))
 print("FIELD", "sixdof_tpu_torch.models.object_field" in sys.modules)
+print("H5_MULTI", all(m in sys.modules for m in ("sixdof_tpu_torch.io.h5_dataset",
+                                                 "sixdof_tpu_torch.models.pose_data",
+                                                 "sixdof_tpu_torch.parallel.sharding")))
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
@@ -57,6 +60,7 @@ print("FIELD", "sixdof_tpu_torch.models.object_field" in sys.modules)
     assert "TRAINER True" in out.stdout  # and the trainer, with the training tool
     assert "LIVE True" in out.stdout  # the BOP reader, the Kinect tools, with their tools
     assert "FIELD True" in out.stdout  # the neural object field, with its tools
+    assert "H5_MULTI True" in out.stdout  # the H5 path and the data axis
 
 
 def test_bop_tools_run_without_jax_or_host_libraries(tmp_path):
@@ -107,6 +111,23 @@ print("BAD", [n for n in sys.modules if n.split(".")[0] in {FORBIDDEN!r}])
     assert "STEPS 10 10" in out.stdout and "BAD []" in out.stdout, out.stdout
 
 
+def test_h5_files_need_h5py(monkeypatch, tmp_path):
+    """Without h5py, opening or writing an H5 file raises ImportError naming
+    it (never an empty dataset); a transform-only dataset needs no file."""
+    monkeypatch.setitem(sys.modules, "h5py", None)  # `import h5py` now raises
+    from sixdof_tpu_torch.io import h5_dataset as h5
+
+    for cls in (h5.PairH5Dataset, h5.TripletH5Dataset, h5.ScoreMultiPairH5Dataset,
+                h5.PoseRefinePairH5Dataset):
+        with pytest.raises(ImportError, match="h5py"):
+            cls(h5_file=str(tmp_path / "pairs.h5"))
+        assert len(cls(mode="test")) == 1
+    with pytest.raises(ImportError, match="h5py"):
+        h5.write_pair_h5(str(tmp_path / "out.h5"), {})
+    with pytest.raises(ImportError, match="h5py"):
+        h5.PairH5Dataset().load_sample("ob_0")
+
+
 def test_entry_points_raise_without_cuda(monkeypatch):
     import torch
 
@@ -137,6 +158,14 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                              depth, np.ones((1, 8, 8), np.uint8), np.eye(4)[None])
     with pytest.raises(RuntimeError, match="CUDA"):
         of.OccupancyGrid(np.zeros((4, 3)))
+    from sixdof_tpu_torch.models.pose_data import BatchPoseData
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BatchPoseData(rgbAs=np.zeros((1, 2, 2, 3))).device()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BatchPoseData(rgbAs=torch.zeros((1, 2, 2, 3))).pin_memory()
+    on_cpu = BatchPoseData(rgbAs=np.zeros((1, 2, 2, 3))).device("cpu")
+    assert on_cpu.rgbAs.device.type == "cpu" and on_cpu.rgbAs.dtype == torch.float32
 
 
 def test_kernel_wrapper_dispatch(monkeypatch):
