@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port's pose server, capture path, trainer, BOP
-campaign, live-camera loop, neural object field, H5 pose-pair path and the
-data axis of its multi-device path on one NVIDIA card and check them.
+campaign, live-camera loop, neural object field, H5 pose-pair path and its
+multi-device path (the data and the model axis) on one NVIDIA card and
+check them.
 
     python3 chip_smoke.py
 
@@ -122,20 +123,28 @@ non-zero without printing the final result:
            bit-equal, xyz within H5_XYZ_ATOL but for H5_XYZ_FLIP_SHARE;
            timed), select_by_indices; opening an .h5 file without h5py
            raises the ImportError naming it
-  multi    the data axis of the multi-device path: 2 ranks on the one card
-           over gloo (spawn_ranks, a FileStore, 120 s timeouts; it measures
-           no scaling), part by part, each held to rank 0's unsharded run
-           of the same inputs: (register) FoundationPose(device_mesh=...)
-           on frame 0 at the app's configuration (252 hypotheses, prune_to
-           64, 96x96 coarse, 160x160, 5 iterations) against the unsharded
-           staged register (the pose phase's limits, top-5 scores 1e-3
-           relative); (capture) frame 2's capture with its restarts and
-           rays sharded, restart by restart and ray by ray; (train) 3
-           refiner and 3 scorer steps at batch 32 / 4 scenes x 12 and
-           (field) 3 object-field steps at the JAX tool's configuration,
-           each loss 1e-3 relative and the first step's averaged gradients
-           1e-4 of the largest entry; seconds and collective seconds a
-           part, each rank's K1 and K2 launches
+  multi    the multi-device path: ranks on the one card over gloo
+           (spawn_ranks, a FileStore, 120 s timeouts; it measures no
+           scaling), part by part, each held to rank 0's unsharded run of
+           the same inputs.  The data axis on 2 ranks: (register)
+           FoundationPose(device_mesh=...) on frame 0 at the app's
+           configuration (252 hypotheses, prune_to 64, 96x96 coarse,
+           160x160, 5 iterations) against the unsharded staged register
+           (the pose phase's limits, top-5 scores 1e-3 relative); (capture)
+           frame 2's capture with its restarts and rays sharded, restart by
+           restart and ray by ray; (train) 3 refiner and 3 scorer steps
+           from the bundled weights at batch 32 / 4 scenes x 12 and (field)
+           3 object-field steps at the JAX tool's configuration, each loss
+           1e-3 relative and the first step's averaged gradients 1e-4 of
+           the largest entry, the trunk's first gradient non-zero.  The
+           model axis: (model) the same trainer steps with the large layers
+           split over a (1, 2) mesh and (model2d) a (2, 2) mesh, held as
+           (train) is, the replicated parameters bit-equal across the model
+           ranks and every parameter across the data ranks after the steps,
+           the split trainer's checkpoint equal to its gathered weights,
+           loaded by the predictors and within 6 steps of lr of the
+           unsharded one's.  Seconds, data- and model-axis collective
+           seconds, peak memory and K1 and K2 launches of each rank
   kernels  each kernel the run launched, with its check and numbers (K1's
            launches: the pose, train, bop, live, field and h5 phases' and
            multi's ranks'; K2's: the run loop's in capture (b),
@@ -1917,6 +1926,13 @@ def phase_h5(device, scene, small):
 MULTI_RANKS = 2  # processes on the one card, over gloo (NCCL refuses two on one device)
 MULTI_TIMEOUT = 120.0  # each part's rendezvous, and its wait for the ranks' results
 MULTI_TRAIN_STEPS = 3
+# a split trainer's checkpoint after its first update against the unsharded
+# one's, on the entries whose unsharded first gradient is over
+# MULTI_CKPT_GRAD_FLOOR of its largest (well above the gradients' 1e-4
+# agreement, so both runs step them the same way): within
+# MULTI_CKPT_LR_FRAC x lr.  Adam's first step moves such an entry by lr
+# times the gradient's sign, so a shard stepped wrong is about lr off.
+MULTI_CKPT_GRAD_FLOOR, MULTI_CKPT_LR_FRAC = 1e-3, 0.1
 # sharded against unsharded: top-5 register scores, each step's loss
 # (relative), the first step's averaged gradients (of the largest entry)
 MULTI_SCORE_RTOL, MULTI_LOSS_RTOL, MULTI_GRAD_REL = 1e-3, 1e-3, 1e-4
@@ -2061,17 +2077,30 @@ def _multi_capture(mesh, device, small):
 
 def _multi_train(mesh, device, small):
     """MULTI_TRAIN_STEPS refiner and scorer steps at the trainer's
-    configuration (batch 32 at 160x160; 4 scenes x 12), data-parallel over
-    the ranks from one generator, the first step's averaged gradients kept;
-    rank 0 then takes the same steps unsharded from the same generator."""
+    configuration (batch 32 at 160x160; 4 scenes x 12) from the bundled
+    weights (whose heads, unlike a fresh model's zero heads, give the trunk
+    a first gradient), over the mesh from one generator, the first step's
+    averaged gradients kept whole; each rank's peak memory and the digests
+    of its parameters after the steps; rank 0 then takes the same steps
+    unsharded from the same generator.  With a model axis the large layers
+    are split over it (parallel/tensor_parallel.py), and the split
+    trainer's checkpoint (save_params) after its first update is held to
+    the unsharded one's."""
+    import hashlib
+    import shutil
+    import tempfile
+
     import torch
 
     from sixdof_tpu_torch.io.mesh_io import load_mesh
     from sixdof_tpu_torch.io.readers import DataReader
     from sixdof_tpu_torch.models.networks import RefineNet, ScoreNetMultiPair
+    from sixdof_tpu_torch.models.predict import PoseRefinePredictor, ScorePredictor
     from sixdof_tpu_torch.ops.geometry import compute_mesh_diameter
     from sixdof_tpu_torch.ops.rasterize import make_mesh_arrays
     from sixdof_tpu_torch.parallel import train as tr
+    from sixdof_tpu_torch.parallel.tensor_parallel import (full_state_dict, full_tensors,
+                                                           split_parameters)
 
     scene = os.path.join(REPO, _config(small).test_scene_dir)
     obj = load_mesh(os.path.join(scene, "mesh", "model_scaled_down.obj"))
@@ -2082,29 +2111,88 @@ def _multi_train(mesh, device, small):
                           input_hw=(32, 32) if small else (160, 160), p_occlusion=0.5,
                           p_sensor=0.5)
     scfg = rcfg._replace(n_hypotheses=2 if small else 12, lr=3e-4)
+    split = mesh.shape["model"] > 1
+    # the checkpoints: rank 0 writes them into its own temporary directory
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_multi_")
 
-    def steps(cls, model, cfg, device_mesh):
-        trainer = cls(model(c_in=6), arrays, K, diameter, cfg, seed=0, device_mesh=device_mesh)
+    def steps(cls, model, cfg, device_mesh, net, save=None):
+        """The trainer's steps, the first step's gradients, and with @save
+        its checkpoint there after the first update (and its weights
+        gathered whole)."""
+        trainer = cls(model(c_in=6), arrays, K, diameter, cfg,
+                      params=tr.load_init_params(WEIGHTS, net), device_mesh=device_mesh)
         gen = torch.Generator(device).manual_seed(21)
         first = _step_seconds(device, lambda: trainer.gradients(trainer.batch(gen)))
-        grads = torch.cat([p.grad.reshape(-1) for p in trainer.model.parameters()]).clone()
+        grads = {k: g.clone() for k, g in full_tensors(trainer.model, grads=True).items()}
         trainer.optimizer.step()
-        return _steps(device, first, lambda: trainer.step(gen)), grads
+        ckpt = (tr.save_params(save, net, trainer.model),
+                {k: v.clone() for k, v in full_state_dict(trainer.model).items()}) \
+            if save else None
+        return trainer, _steps(device, first, lambda: trainer.step(gen)), grads, ckpt
 
-    out = dict(k1=0, k2=0)
+    def flat(tensors):
+        return torch.cat([t.reshape(-1) for t in tensors.values()])
+
+    out = dict(k1=0, k2=0, data_rank=mesh.data_rank, model_rank=mesh.model_rank, digests={},
+               split={})
     for name, cls, model, cfg in (("refiner", tr.RefinerTrainer, RefineNet, rcfg),
                                   ("scorer", tr.ScorerTrainer, ScoreNetMultiPair, scfg)):
         _kernel_counts(reset=True)
-        res, grads = steps(cls, model, cfg, mesh)
-        res["batch"] = cfg.batch_size if name == "refiner" else cls.n_scenes * cfg.n_hypotheses
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        trainer, res, grads, ckpt = steps(cls, model, cfg, mesh, name,
+                                          os.path.join(out_dir, "sharded") if split else None)
         out["k1"] += _kernel_counts()[0]
+        res["batch"] = cfg.batch_size if name == "refiner" else cls.n_scenes * cfg.n_hypotheses
+        res["peak_memory_gb"] = (torch.cuda.max_memory_allocated(device) / 1e9
+                                 if device.type == "cuda" else None)
+        out["digests"][name] = {k: hashlib.sha1(p.detach().cpu().numpy().tobytes()).hexdigest()
+                                for k, p in trainer.model.named_parameters()}
+        out["split"][name] = sorted(split_parameters(trainer.model))
         if mesh.rank == 0:
-            ref, ref_grads = steps(cls, model, cfg, None)
-            res.update(unsharded_losses=ref["losses"], unsharded_step_s=ref["step_s"],
-                       grad_max=float(ref_grads.abs().max()),
-                       grad_max_abs_diff=float((grads - ref_grads).abs().max()))
+            _, ref_res, ref_grads, ref_ckpt = steps(
+                cls, model, cfg, None, name, os.path.join(out_dir, "unsharded") if split else None)
+            res.update(unsharded_losses=ref_res["losses"], unsharded_step_s=ref_res["step_s"],
+                       grad_max=float(flat(ref_grads).abs().max()),
+                       grad_max_abs_diff=float((flat(grads) - flat(ref_grads)).abs().max()),
+                       trunk_grad_max=max(float(g.abs().max()) for k, g in ref_grads.items()
+                                          if k.startswith(("encodeA", "encoderA"))))
+            if split:
+                res.update(_checkpoint_checks(*ckpt, ref_ckpt[0], ref_grads, out["split"][name],
+                                              device, (PoseRefinePredictor, ScorePredictor)[
+                                                  name == "scorer"], cfg.lr))
         out[name] = res
+    shutil.rmtree(out_dir)
     return out
+
+
+def _checkpoint_checks(path, whole, ref_path, ref_grads, split, device, predictor, lr):
+    """The split trainer's checkpoint at @path, written after its first
+    update: bit-equal to its weights gathered whole (@whole), the names and
+    shapes of the unsharded one at @ref_path, loaded by @predictor, and,
+    on the entries whose unsharded first gradient (@ref_grads) is over
+    MULTI_CKPT_GRAD_FLOOR of the largest (counted, and those of the @split
+    weights apart), its largest difference from the unsharded one beside
+    the bound MULTI_CKPT_LR_FRAC x @lr."""
+    import numpy as np
+    import torch
+
+    floor = MULTI_CKPT_GRAD_FLOOR * max(float(g.abs().max()) for g in ref_grads.values())
+    with np.load(path) as a, np.load(ref_path) as b:
+        equal = sorted(a.files) == sorted(whole) and all(
+            np.array_equal(a[k], whole[k].float().cpu().numpy()) for k in a.files)
+        same = sorted(a.files) == sorted(b.files) and all(a[k].shape == b[k].shape
+                                                          for k in a.files)
+        diff = {k: np.abs(a[k] - b[k]) for k in a.files} if same else {}
+    held = {k: diff[k][ref_grads[k].abs().cpu().numpy() > floor] for k in ref_grads if k in diff}
+    loaded = predictor(device, ckpt_dir=path, compute_dtype=torch.float32).ckpt_path == path
+    return dict(ckpt_equals_gathered=equal, ckpt_same_names_shapes=same, ckpt_loads=loaded,
+                ckpt_max_abs_diff=max(float(d.max()) for d in diff.values()) if same else None,
+                ckpt_held_entries=int(sum(d.size for d in held.values())),
+                ckpt_held_split_entries=int(sum(held[k].size for k in split if k in held)),
+                ckpt_held_max_abs_diff=max((float(d.max(initial=0.0)) for d in held.values()),
+                                           default=float("inf")),
+                ckpt_bound=MULTI_CKPT_LR_FRAC * lr)
 
 
 def _step_seconds(device, fn):
@@ -2165,9 +2253,12 @@ def _multi_field(mesh, device, small):
 
 
 MULTI_PARTS = {"register": _multi_register, "capture": _multi_capture, "train": _multi_train,
-               "field": _multi_field}
+               "field": _multi_field, "model": _multi_train, "model2d": _multi_train}
+# each part's (n_data, n_model) mesh: the trainers split over a model axis
+# in parts model and model2d, the rest over MULTI_RANKS data ranks
+MULTI_MESH = {"model": (1, 2), "model2d": (2, 2)}
 # the kernel each part's ranks launch (K1 renders, K2 traces; the field none)
-MULTI_KERNEL = {"register": 0, "capture": 1, "train": 0}
+MULTI_KERNEL = {"register": 0, "capture": 1, "train": 0, "model": 0, "model2d": 0}
 
 
 def multi_rank(mesh, part, device_type, small):
@@ -2180,7 +2271,7 @@ def multi_rank(mesh, part, device_type, small):
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
     out = MULTI_PARTS[part](mesh, resolve_device(device_type), small)
-    return dict(out, collective_s=mesh.collective_seconds)
+    return dict(out, axis_s=dict(mesh.seconds))
 
 
 def _rel(a, b):
@@ -2228,7 +2319,7 @@ def _check_multi(part, ranks):
                not out["hits_same"], out["hit_max_abs_diff_mm"] > MULTI_HIT_MM_ATOL,
                not np.isinf(t[nray:]).all()]
     else:
-        for name in ("refiner", "scorer") if part == "train" else (None,):
+        for name in (None,) if part == "field" else ("refiner", "scorer"):
             r = r0[name] if name else r0
             same = all((q[name] if name else q)["losses"] == r["losses"] for q in ranks)
             rel = _rel(r["losses"], r["unsharded_losses"])
@@ -2236,31 +2327,63 @@ def _check_multi(part, ranks):
             out[name or part] = dict(ranks_same_losses=same, loss_max_rel_diff=rel,
                                      first_grad_diff_of_max=grad_rel)
             bad += [not same, rel > MULTI_LOSS_RTOL, grad_rel > MULTI_GRAD_REL]
+            if name:
+                checks = _replica_checks(ranks, name)
+                out[name].update(checks, trunk_grad_max=r["trunk_grad_max"])
+                bad += [not all(checks.values()), not r["trunk_grad_max"] > 0]
+            if name and "ckpt_bound" in r:
+                out[name].update({k: v for k, v in r.items() if k.startswith("ckpt_")})
+                bad += [not r["ckpt_equals_gathered"], not r["ckpt_same_names_shapes"],
+                        not r["ckpt_loads"], not r["ckpt_held_split_entries"] > 0,
+                        not r["ckpt_held_max_abs_diff"] <= r["ckpt_bound"]]
     return out, any(bad)
 
 
+def _replica_checks(ranks, net):
+    """After a trainer part's steps: every replicated parameter bit-equal
+    across the model ranks of a data index, every parameter (shards too)
+    across the data ranks of a model index."""
+    rep = [k for k in ranks[0]["digests"][net] if k not in ranks[0]["split"][net]]
+    return dict(
+        replicated_equal_over_model=all(q["digests"][net][k] == r["digests"][net][k]
+                                        for r in ranks for q in ranks
+                                        if q["data_rank"] == r["data_rank"] for k in rep),
+        params_equal_over_data=all(q["digests"][net] == r["digests"][net]
+                                   for r in ranks for q in ranks
+                                   if q["model_rank"] == r["model_rank"]))
+
+
 def phase_multi(device, small):
-    """The data axis of the multi-device path: MULTI_RANKS ranks on the one
-    card (gloo; every tensor on the card, gloo's all_gather through host
-    memory), started part by part by spawn_ranks, each part held to rank
-    0's unsharded run of the same inputs (the gates above).  It measures no
-    scaling: both ranks share one card."""
+    """The multi-device path on the one card (gloo; every tensor on the card,
+    gloo's all_gather through host memory): the data axis over MULTI_RANKS
+    ranks, then the trainers' model axis on (1, 2) and (2, 2) meshes
+    (MULTI_MESH), started part by part by spawn_ranks, each part held to
+    rank 0's unsharded run of the same inputs (the gates above).  It
+    measures no scaling: the ranks share one card."""
     from sixdof_tpu_torch.parallel.sharding import spawn_ranks
 
     res = dict(backend="gloo", ranks_per_card=MULTI_RANKS, measures_scaling=False, parts={})
     k1 = k2 = 0
     failed = []
     for part in MULTI_PARTS:
+        n_data, n_model = MULTI_MESH.get(part, (MULTI_RANKS, 1))
         t0 = time.perf_counter()
-        ranks = spawn_ranks(multi_rank, MULTI_RANKS, args=(part, device.type, small),
-                            backend="gloo", timeout=MULTI_TIMEOUT, threads=1 if small else None)
+        ranks = spawn_ranks(multi_rank, n_data * n_model, args=(part, device.type, small),
+                            backend="gloo", timeout=MULTI_TIMEOUT, threads=1 if small else None,
+                            n_model=n_model)
         seconds = time.perf_counter() - t0
         checks, bad = _check_multi(part, ranks)
         launches = [(r["k1"], r["k2"]) for r in ranks]
         keep = {k: v for k, v in ranks[0].items()
                 if k not in ("pose", "unsharded_pose", "sharded", "unsharded", "k1", "k2",
-                             "collective_s")}
-        res["parts"][part] = dict(seconds=seconds, collective_s=[r["collective_s"] for r in ranks],
+                             "axis_s", "digests", "split", "data_rank",
+                             "model_rank")}
+        nets = [net for net in ("refiner", "scorer") if net in ranks[0]]
+        res["parts"][part] = dict(seconds=seconds, mesh=[n_data, n_model],
+                                  data_axis_s=[r["axis_s"]["data"] for r in ranks],
+                                  model_axis_s=[r["axis_s"]["model"] for r in ranks],
+                                  peak_memory_gb={net: [r[net]["peak_memory_gb"] for r in ranks]
+                                                  for net in nets},
                                   k1_launches=[n for n, _ in launches],
                                   k2_launches=[n for _, n in launches], checks=checks,
                                   **_jsonable(keep))
@@ -2406,7 +2529,7 @@ def run(device="cuda", small=False):
     live = phase_live(dev, cfg, scene, small, refiner, scorer)
     # the neural object field: a fit, its mesh, and a register on that mesh
     field = phase_field(dev, cfg, small, refiner, scorer)
-    # the H5 pose-pair path, then the data axis of the multi-device path
+    # the H5 pose-pair path, then the multi-device path's data and model axes
     # (ranks on the card; their launches are counted in the ranks)
     h5 = phase_h5(dev, scene, small)
     multi = phase_multi(dev, small)

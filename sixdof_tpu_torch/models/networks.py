@@ -117,11 +117,16 @@ class MultiheadAttention(nn.Module):
         self.out_proj = Linear(embed_dim, embed_dim)
         nn.init.xavier_uniform_(self.in_proj_weight)
 
+    def in_proj(self, x):
+        """The packed QKV projection (a tensor-parallel trainer replaces it
+        on the instance with its split product)."""
+        return _linear(x, self.in_proj_weight, self.in_proj_bias)
+
     def forward(self, x):
         B, N, D = x.shape
         H = self.num_heads
         hd = D // H
-        qkv = _linear(x, self.in_proj_weight, self.in_proj_bias)
+        qkv = self.in_proj(x)
         q, k, v = (t.reshape(B, N, H, hd).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
         attn = torch.matmul(q, k.transpose(-1, -2))
         # the scale in the product's dtype, as JAX casts a Python scalar

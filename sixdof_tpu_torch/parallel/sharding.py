@@ -1,21 +1,28 @@
-"""The data axis of the multi-device path, over torch.distributed.
+"""The multi-device path over torch.distributed: a data x model mesh.
 
-Port of `sixdof_tpu/parallel/sharding.py`'s `data` axis.  JAX runs one
-controller over a mesh of devices and XLA inserts the collectives.  Here
-every device is driven by a process of its own (a rank); each rank runs the
-same program on its slice of the work, and the collectives are explicit:
+Port of `sixdof_tpu/parallel/sharding.py`.  JAX runs one controller over a
+mesh of devices and XLA inserts the collectives.  Here every device is
+driven by a process of its own (a rank); each rank runs the same program
+on its slice of the work, and the collectives are explicit.
+
+The `data` axis splits the work:
 - the hypothesis axis of register: each rank refines and scores its slice
   of the hypotheses (`models/predict.py`), which are gathered;
 - the ICP restarts and the defect rays of a capture (`ops/icp.py`);
 - training and object-field batches: each rank takes the loss of its slice,
   and the gradients are averaged before the optimizer step.
-
 The pad rules are JAX's: hypotheses repeat the first pose, restarts repeat
 the last restart, rays are padded with masked-off rays, and an object-field
 ray batch must divide the data axis.  Each `shard_*` helper returns this
-rank's slice of the padded work and the true count.  The `model` axis
-(tensor parallelism, JAX's `param_shardings`) is not ported yet:
-`make_mesh(n_model > 1)` raises.
+rank's slice of the padded work and the true count.
+
+The `model` axis (tensor parallelism, JAX's `param_shardings`) splits the
+trainers' large layers by output feature (`parallel/tensor_parallel.py`).
+Rank r sits at data index r // n_model and model index r % n_model, as
+JAX reshapes its devices to (n_data, n_model).  `size`, `rows`, `group`,
+`all_gather` and `average_gradients` mean the data axis, so every caller
+that knows only the data axis runs on a 2-D mesh as JAX does: the model
+ranks of a data index do that index's work, replicated.
 
 Ranks: `spawn_ranks` starts them with torch.multiprocessing (spawn); they
 meet through a FileStore in a temporary directory (no TCP port), and the
@@ -39,42 +46,81 @@ import torch.distributed as dist
 
 
 class DeviceMesh:
-    """The data axis over a process group: `shape["data"]` ranks, this
-    process being rank `rank`.  `collective_seconds` counts the host time
-    spent in this mesh's collectives.  A 1-rank mesh needs no process group
-    (its collectives are the identity)."""
+    """A (data, model) mesh of `shape["data"] * shape["model"]` ranks over a
+    process group, this process being rank `rank` of it: data index
+    `data_rank` = rank // n_model, model index `model_rank` = rank %
+    n_model.  `group` holds the ranks of this model index (the data axis),
+    `model_group` those of this data index, `world_group` all of them (None:
+    the default group).  `seconds` counts the host time spent in each
+    axis's collectives (those over the whole mesh as data-axis time).  A
+    1-rank axis needs no group (its collectives are the identity)."""
 
-    def __init__(self, n_data=1, rank=0, group=None, backend=None):
-        self.shape = {"data": int(n_data), "model": 1}
+    def __init__(self, n_data=1, rank=0, group=None, backend=None, n_model=1,
+                 model_group=None, world_group=None):
+        self.shape = {"data": int(n_data), "model": int(n_model)}
         self.rank = int(rank)
+        self.data_rank, self.model_rank = divmod(self.rank, self.shape["model"])
         self.group = group
+        self.model_group = model_group
+        self.world_group = world_group
         self.backend = backend
-        self.collective_seconds = 0.0
+        self.seconds = {"data": 0.0, "model": 0.0}
 
     @property
     def size(self):
         return self.shape["data"]
 
+    def axis(self, name):
+        """(size, process group) of axis @name: "data", "model", or "world"
+        (every rank of the mesh)."""
+        if name == "world":
+            return self.shape["data"] * self.shape["model"], self.world_group
+        return self.shape[name], self.group if name == "data" else self.model_group
+
     def rows(self, n):
-        """This rank's slice of @n rows (@n divides the data axis)."""
+        """This data index's slice of @n rows (@n divides the data axis)."""
         per = n // self.size
-        return slice(self.rank * per, (self.rank + 1) * per)
+        return slice(self.data_rank * per, (self.data_rank + 1) * per)
+
+
+def _subgroups(lines, ranks, group):
+    """One process group per line of mesh positions (indices into @ranks,
+    the global ranks of @group), and the one of this process: @group itself
+    where one line spans it, None where the lines hold one rank.  Every rank
+    creates every subgroup, in the same order (torch.distributed requires it
+    even of the ranks outside a subgroup)."""
+    if len(lines) == 1:
+        return group
+    if len(lines[0]) == 1:
+        return None
+    mine = None
+    me = dist.get_rank()
+    for line in lines:
+        members = [ranks[i] for i in line]
+        sub = dist.new_group(members)
+        if me in members:
+            mine = sub
+    return mine
 
 
 def make_mesh(n_data=None, n_model=1, group=None):
     """The (data, model) mesh over an initialised process group (@group,
-    default the world): `shape["data"]` is its size."""
-    if n_model != 1:
-        raise NotImplementedError(
-            "the `model` axis (tensor parallelism: sixdof_tpu/parallel/sharding.py::"
-            "param_shardings) is not ported yet; only the data axis is")
+    default the world), whose size must be n_data * n_model (@n_data None:
+    size // n_model).  Rank r sits at (r // n_model, r % n_model)."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs an initialised process group "
                            "(torch.distributed.init_process_group, or spawn_ranks)")
     world = dist.get_world_size(group)
-    if n_data is not None and n_data != world:
-        raise ValueError(f"n_data={n_data}, but the process group has {world} ranks")
-    return DeviceMesh(world, dist.get_rank(group), group, dist.get_backend(group))
+    if n_model < 1 or world % n_model or (n_data is not None and n_data * n_model != world):
+        raise ValueError(f"the process group's {world} ranks do not form a (data={n_data}, "
+                         f"model={n_model}) mesh")
+    n_data = world // n_model
+    ranks = dist.get_process_group_ranks(group) if group is not None else list(range(world))
+    grid = [[d * n_model + m for m in range(n_model)] for d in range(n_data)]
+    data_group = _subgroups([list(col) for col in zip(*grid)], ranks, group)
+    model_group = _subgroups(grid, ranks, group)
+    return DeviceMesh(n_data, dist.get_rank(group), data_group, dist.get_backend(group),
+                      n_model=n_model, model_group=model_group, world_group=group)
 
 
 def _pad(x, mesh, fill):
@@ -130,58 +176,72 @@ def shard_field_rays(batch, mesh):
     return batch[mesh.rows(n)], n
 
 
-def _timed(mesh, fn, device):
-    """Run the collective @fn, its host seconds (the device synchronised
-    around it) added to `mesh.collective_seconds`."""
+def _timed(mesh, axis, fn, device):
+    """Run the collective @fn over @axis, its host seconds (the device
+    synchronised around it) added to `mesh.seconds` (a collective over the
+    whole mesh counts as data-axis time)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t0 = time.perf_counter()
     out = fn()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    mesh.collective_seconds += time.perf_counter() - t0
+    mesh.seconds["model" if axis == "model" else "data"] += time.perf_counter() - t0
     return out
 
 
-def all_gather(local, mesh):
-    """The ranks' equal-shaped slices concatenated along dim 0 in rank
-    order; every rank gets the whole tensor, on @local's device."""
-    if mesh.size == 1:
+def all_gather(local, mesh, dim=0, axis="data"):
+    """The equal-shaped slices of the ranks of @axis concatenated along
+    @dim in their order; every rank gets the whole tensor, on @local's
+    device."""
+    size, group = mesh.axis(axis)
+    if size == 1:
         return local
 
     def gather():
         # gloo has no CUDA all_gather: this one tensor goes through host memory
         via_host = local.is_cuda and mesh.backend == "gloo"
         x = (local.cpu() if via_host else local).contiguous()
-        parts = [torch.empty_like(x) for _ in range(mesh.size)]
-        dist.all_gather(parts, x, group=mesh.group)
-        return torch.cat(parts).to(local.device)
+        parts = [torch.empty_like(x) for _ in range(size)]
+        dist.all_gather(parts, x, group=group)
+        return torch.cat(parts, dim=dim).to(local.device)
 
-    return _timed(mesh, gather, local.device)
+    return _timed(mesh, axis, gather, local.device)
 
 
-def average_gradients(params, mesh):
-    """Replace each parameter's gradient by its mean over the ranks (a
-    missing gradient counts as zero): one all_reduce of the gradients
-    flattened together."""
-    params = [p for p in params if p.requires_grad]
-    if mesh.size == 1 or not params:
-        return
-    grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+def all_reduce(x, mesh, axis):
+    """The sum of @x over the ranks of @axis (a new tensor; @x itself
+    where the axis holds one rank)."""
+    size, group = mesh.axis(axis)
+    if size == 1:
+        return x
 
     def reduce():
-        flat = torch.cat([g.reshape(-1) for g in grads])
-        dist.all_reduce(flat, group=mesh.group)
-        return flat / mesh.size
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
 
-    flat = _timed(mesh, reduce, grads[0].device)
+    return _timed(mesh, axis, reduce, x.device)
+
+
+def average_gradients(params, mesh, axis="data"):
+    """Replace each parameter's gradient by its mean over the ranks of
+    @axis (a missing gradient counts as zero): one all_reduce of the
+    gradients flattened together."""
+    params = [p for p in params if p.requires_grad]
+    size, _ = mesh.axis(axis)
+    if size == 1 or not params:
+        return
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+    flat = all_reduce(torch.cat([g.reshape(-1) for g in grads]), mesh, axis) / size
     offset = 0
     for p in params:
         p.grad = flat[offset:offset + p.numel()].view_as(p)
         offset += p.numel()
 
 
-def _rank_main(rank, world_size, fn, args, backend, store, timeout, threads, results):
+def _rank_main(rank, world_size, fn, args, backend, store, timeout, threads, n_model,
+               results):
     try:
         if threads:
             torch.set_num_threads(threads)
@@ -192,7 +252,7 @@ def _rank_main(rank, world_size, fn, args, backend, store, timeout, threads, res
         results.put((rank, False, traceback.format_exc()))
         return
     try:  # the result (or the failure) goes out before this rank leaves the group
-        results.put((rank, True, fn(make_mesh(), *args)))
+        results.put((rank, True, fn(make_mesh(n_model=n_model), *args)))
     except BaseException:
         results.put((rank, False, traceback.format_exc()))
     finally:
@@ -215,10 +275,12 @@ def _failures(results, failed, pending, wait=5.0):
     return "\n".join(f"rank {r} failed:\n{tb}" for r, tb in sorted(failed.items()))
 
 
-def spawn_ranks(fn, world_size, args=(), backend="gloo", timeout=120.0, threads=None):
+def spawn_ranks(fn, world_size, args=(), backend="gloo", timeout=120.0, threads=None,
+                n_model=1):
     """Run `fn(mesh, *args)` on @world_size new processes (torch.multiprocessing,
-    spawn), one rank each, over @backend; they meet through a FileStore in a
-    temporary directory.  @fn must be importable by name (a module-level
+    spawn), one rank each, over @backend, @mesh being their (world_size /
+    @n_model, @n_model) mesh; they meet through a FileStore in a temporary
+    directory.  @fn must be importable by name (a module-level
     function) and return host values (numbers, numpy arrays).  The
     rendezvous and the wait for all results each time out after @timeout
     seconds; a failed rank raises with its traceback.  @threads: torch's
@@ -228,7 +290,8 @@ def spawn_ranks(fn, world_size, args=(), backend="gloo", timeout=120.0, threads=
         results = ctx.Queue()
         procs = [ctx.Process(target=_rank_main,
                              args=(r, world_size, fn, tuple(args), backend,
-                                   os.path.join(tmp, "store"), timeout, threads, results))
+                                   os.path.join(tmp, "store"), timeout, threads, n_model,
+                                   results))
                  for r in range(world_size)]
         for p in procs:
             p.start()

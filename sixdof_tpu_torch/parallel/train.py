@@ -19,13 +19,19 @@ under `torch.no_grad()` (the JAX loss closes over the batch, and no raster
 kernel has a gradient); the networks train in float32 without autocast.
 
 A trainer given a `device_mesh` (parallel/sharding.py, one process a rank)
-trains data-parallel, the `data` axis of the JAX trainers: every rank makes
-the same draws from the same generator, takes its slice of them (the
-refiner's rows, the scorer's whole scenes) and renders only that slice
-through K1; the loss is the mean over the slice, and the gradients are
-averaged across the ranks before Adam, which stays replicated.  The JAX
-trainers' `model` axis (parameters placed by `param_shardings`) is not
-ported yet.
+trains over the mesh's axes, as the JAX trainers do:
+- `data`: every rank makes the same draws from the same generator, takes
+  the slice of its data index (the refiner's rows, the scorer's whole
+  scenes) and renders only that slice through K1; the loss is the mean over
+  the slice, and the gradients are averaged across the data ranks before
+  Adam;
+- `model` (n_model > 1): the whole model is built and initialised (or
+  loaded) first and then split (`parallel/tensor_parallel.py`, JAX's
+  `param_shardings`), so a split model is the unsplit one cut, bit for bit;
+  the model ranks of a data index render the same slice, each split
+  weight's gradient is averaged over its data group and every replicated
+  one over the whole mesh, and Adam steps each rank's own shards and
+  replicated parameters.
 """
 from __future__ import annotations
 
@@ -37,6 +43,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..models.checkpoint import MANIFEST
@@ -46,7 +53,8 @@ from ..ops.geometry import compute_crop_window_tf_batch, egocentric_delta_pose_t
 from ..ops.lie import so3_exp_map
 from ..ops.rasterize import MeshArrays, render_batch
 from .augment import _normal, _pool, _uniform, maybe_degrade_pair, pair_draws, resize_linear
-from .sharding import all_gather, average_gradients
+from .sharding import all_gather
+from .tensor_parallel import full_state_dict, model_mesh, reduce_gradients, shard_model
 
 
 class TrainConfig(NamedTuple):
@@ -428,6 +436,8 @@ class _Trainer:
         else:
             self._init(model, torch.Generator().manual_seed(int(seed)))
         model.to(self.device).train()
+        if device_mesh is not None and device_mesh.shape["model"] > 1:
+            shard_model(model, device_mesh)
         self.optimizer = torch.optim.Adam(model.parameters(), lr=cfg.lr)
 
     def _init(self, model, gen):
@@ -454,13 +464,13 @@ class _Trainer:
 
     def gradients(self, batch):
         """Forward and backward on @batch, the gradients averaged across the
-        mesh's ranks; returns the loss, its mean across the ranks."""
+        mesh's ranks; returns the loss, its mean across the data ranks."""
         loss = self.loss(*batch)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         loss = loss.detach()
         if self.device_mesh is not None:
-            average_gradients(self.model.parameters(), self.device_mesh)
+            reduce_gradients(self.model, self.device_mesh)
             loss = all_gather(loss.reshape(1), self.device_mesh).mean()
         return loss
 
@@ -569,10 +579,24 @@ def save_params(out_dir, net, model, cfg=None):
     `models/checkpoint.py` loads; @cfg: the predictor cfg the weights were
     trained with (e.g. {"occ_sub": 0.85}).  Entries of other networks in an
     existing manifest stay.  Crash-safe: each file is written to a
-    temporary sibling and then renamed over the old one."""
-    os.makedirs(out_dir, exist_ok=True)
-    sd = {k: v.detach().float().cpu().numpy() for k, v in model.state_dict().items()}
+    temporary sibling and then renamed over the old one.  A model split
+    over a model axis is gathered whole first (every rank of its mesh
+    calls this), rank 0 of the mesh writes, and every rank returns once the
+    file is there."""
+    mesh = model_mesh(model)
+    sd = {k: v.detach().float().cpu().numpy() for k, v in full_state_dict(model).items()}
     path = os.path.join(out_dir, f"{net}.npz")
+    if mesh is None or mesh.rank == 0:
+        _write_params(out_dir, net, path, sd, cfg)
+    if mesh is not None:
+        dist.barrier(group=mesh.world_group)
+    return path
+
+
+def _write_params(out_dir, net, path, sd, cfg):
+    """save_params' files: @sd ({name: float32 array}) at @path, and @net's
+    manifest entry."""
+    os.makedirs(out_dir, exist_ok=True)
     tmp = path + ".tmp-save.npz"
     np.savez(tmp, **sd)
     mpath = os.path.join(out_dir, MANIFEST)
@@ -589,4 +613,3 @@ def save_params(out_dir, net, model, cfg=None):
         json.dump(manifest, f, indent=1, sort_keys=True)
     os.replace(tmp, path)
     os.replace(mtmp, mpath)
-    return path

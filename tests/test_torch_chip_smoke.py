@@ -4,9 +4,9 @@ weights, the accuracy phase, the capture path and the run loop twice, the
 loop at --debug 2 and in viewer mode, the point-click path on a crust, the
 --icp registration, the trainer, the BOP campaign, the live-camera loop
 against a stand-in Kinect, the neural object field, the H5 path and the
-multi-device path on 2 gloo ranks of the CPU) and the kernels line has the
-keys the card run reports; a phase that fails stops the script before its
-result."""
+multi-device path on gloo ranks of the CPU, its model axis too) and the
+kernels line has the keys the card run reports; a phase that fails stops
+the script before its result."""
 import json
 import os
 import sys
@@ -162,24 +162,35 @@ def test_chip_smoke_rehearsal_on_cpu(capsys):
     assert h5["rgb_bit_equal"] and h5["xyz_max_abs_diff"] == 0.0 and h5["select_by_indices_ok"]
     assert h5["h5py"] and h5["open_h5"] == "written and read back equal"
     assert all(h5[k] > 0 for k in ("png_round_trip_ms", "transform_ms", "png_bytes"))
-    # the multi-device path: 2 gloo ranks, every part against rank 0's
-    # unsharded run, the ranks agreeing
+    # the multi-device path: 2 gloo ranks on the data axis, then the
+    # trainers split over a model axis on (1, 2) and (2, 2) meshes, every
+    # part against rank 0's unsharded run, the ranks agreeing
     multi = next(x for x in lines if x.get("phase") == "multi")
     assert multi["backend"] == "gloo" and multi["ranks_per_card"] == 2
     assert not multi["measures_scaling"]
     parts = multi["parts"]
-    assert list(parts) == ["register", "capture", "train", "field"]
+    assert list(parts) == ["register", "capture", "train", "field", "model", "model2d"]
+    assert [parts[p]["mesh"] for p in parts] == [[2, 1]] * 4 + [[1, 2], [2, 2]]
     for part in parts.values():
-        assert len(part["collective_s"]) == 2 and part["seconds"] > 0
-        assert part["k1_launches"] == part["k2_launches"] == [0, 0]  # plain versions here
+        n = part["mesh"][0] * part["mesh"][1]
+        assert len(part["data_axis_s"]) == n and part["seconds"] > 0
+        assert part["k1_launches"] == part["k2_launches"] == [0] * n  # plain versions here
+        assert (min(part["model_axis_s"]) > 0) == (part["mesh"][1] > 1)
     reg, cap = parts["register"]["checks"], parts["capture"]["checks"]
     assert reg["ranks_same_pose"] and reg["vs_unsharded_rot_deg"] <= chip_smoke.POSE_ROT_DEG_MAX
     assert cap["ranks_same"] and cap["hits_same"] and cap["padded"] == [4, 588]
     assert parts["capture"]["rays"] == 587 and cap["hits"] > 0
-    for name in ("refiner", "scorer"):
-        t = parts["train"]["checks"][name]
+    for part, name in ((p, n) for p in ("train", "model", "model2d") for n in ("refiner",
+                                                                               "scorer")):
+        t = parts[part]["checks"][name]
         assert t["ranks_same_losses"] and t["first_grad_diff_of_max"] <= chip_smoke.MULTI_GRAD_REL
-        assert len(parts["train"][name]["losses"]) == chip_smoke.MULTI_TRAIN_STEPS
+        assert t["trunk_grad_max"] > 0 and t["replicated_equal_over_model"]
+        assert t["params_equal_over_data"]
+        assert len(parts[part][name]["losses"]) == chip_smoke.MULTI_TRAIN_STEPS
+        if part != "train":
+            assert t["ckpt_same_names_shapes"] and t["ckpt_loads"] and t["ckpt_equals_gathered"]
+            assert t["ckpt_held_split_entries"] > 0
+            assert t["ckpt_held_max_abs_diff"] <= t["ckpt_bound"]
     assert parts["field"]["checks"]["field"]["loss_max_rel_diff"] <= chip_smoke.MULTI_LOSS_RTOL
     assert kernels[0]["launches"] == kernels[1]["launches"] == 0
 

@@ -73,7 +73,7 @@ def jax_mesh():
 # ---------------------------------------------------------------- helpers --
 
 
-def test_pad_and_slice_helpers_match_jax():
+def test_pad_and_slice_helpers_match_jax(tmp_path):
     """Each rank's slice is its part of JAX's padded array: hypotheses
     repeat the first pose, restarts the last restart, rays are padded
     masked off; a field batch must divide the data axis."""
@@ -107,10 +107,21 @@ def test_pad_and_slice_helpers_match_jax():
             sh.shard_field_rays(jnp.asarray(batch.numpy()[:rays]), jmesh)
         with pytest.raises(ValueError, match="divide"):
             ts.shard_field_rays(batch[:rays], mm)
-    with pytest.raises(NotImplementedError, match="model"):
-        ts.make_mesh(n_data=1, n_model=2)
-    with pytest.raises(RuntimeError, match="process group"):
-        ts.make_mesh()
+    # make_mesh needs a process group, whose size must be n_data x n_model
+    for kw in ({}, dict(n_data=1, n_model=2)):
+        with pytest.raises(RuntimeError, match="process group"):
+            ts.make_mesh(**kw)
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+                            world_size=1)
+    try:
+        for kw in (dict(n_data=1, n_model=2), dict(n_data=2), dict(n_model=0)):
+            with pytest.raises(ValueError, match="do not form"):
+                ts.make_mesh(**kw)
+        assert ts.make_mesh().shape == {"data": 1, "model": 1}
+    finally:
+        dist.destroy_process_group()
 
 
 def test_spawned_ranks_gather_in_rank_order_and_report_a_failure():
@@ -347,18 +358,21 @@ BOX_F = np.array([[0, 2, 1], [0, 3, 2], [4, 5, 6], [4, 6, 7], [0, 1, 5], [0, 5, 
                   [2, 3, 7], [2, 7, 6], [1, 2, 6], [1, 6, 5], [3, 0, 4], [3, 4, 7]])
 
 
-def test_data_parallel_trainer_steps_match_one_rank():
-    """One refiner step (batch 4) and one scorer step (4 scenes of 2) on 2
-    ranks, each rank rendering its half of the same draws, against 1 rank;
-    a batch that does not divide the data axis raises."""
+def test_data_parallel_trainer_steps_match_one_rank(nets):
+    """One refiner step (batch 4) and one scorer step (4 scenes of 2) from
+    the bundled weights on 2 ranks, each rank rendering its half of the same
+    draws, against 1 rank; a batch that does not divide the data axis
+    raises.  (The heads of a fresh network start at zero, which leaves its
+    first trunk gradient zero: the bundled weights make it count.)"""
     d = dict(v=BOX_V, f=BOX_F, K=np.array([[300.0, 0, 80], [0, 300.0, 60], [0, 0, 1]]),
-             diameter=0.1, seed=5,
+             diameter=0.1, seed=5, ckpt=nets[2],
              cfg=dict(batch_size=4, input_hw=(32, 32), n_hypotheses=2, p_occlusion=0.5,
                       p_sensor=0.5))
     ranks = ts.spawn_ranks(workers.trainer_rank, 2, args=(d,), **RANKS)
     one = workers.trainer_rank(ts.DeviceMesh(), d)
     for net in ("refiner", "scorer"):
         got, want = ranks[0][net], one[net]
+        assert got["trunk_max"] > 0 and want["trunk_max"] > 0
         assert got["loss"] == ranks[1][net]["loss"]
         np.testing.assert_array_equal(got["grads"], ranks[1][net]["grads"])
         np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-5, err_msg=net)

@@ -1,4 +1,5 @@
-"""Rank functions of tests/test_torch_sharding.py, each run on every rank by
+"""Rank functions of tests/test_torch_sharding.py and
+tests/test_torch_tensor_parallel.py, each run on every rank by
 `sixdof_tpu_torch/parallel/sharding.py::spawn_ranks` as fn(mesh, inputs).
 
 This module imports no JAX (a spawned rank would pay for its import): the
@@ -48,7 +49,7 @@ def predict_rank(mesh, d):
             rgb=d["rgb"], depth=d["depth"], K=d["K"], ob_in_cams=_np(padded),
             mesh_tensors=arrays, mesh_diameter=d["diameter"], out_hw=d["hw"],
             backface_cull=d["backface_cull"], device_mesh=mesh)[0])
-    return dict(out, collective_s=mesh.collective_seconds)
+    return dict(out, collective_s=mesh.seconds["data"])
 
 
 def _predictors(d, cfg=None):
@@ -89,32 +90,117 @@ def capture_rank(mesh, d):
     return [_np(x) for x in out]
 
 
-def trainer_rank(mesh, d):
-    """One data-parallel refiner step and one scorer step: the loss and
-    every 997th entry of the averaged gradients."""
+def _box_arrays(d):
     from sixdof_tpu_torch.io.mesh_io import TriMesh
-    from sixdof_tpu_torch.models.networks import RefineNet, ScoreNetMultiPair
     from sixdof_tpu_torch.ops.rasterize import make_mesh_arrays
+
+    return make_mesh_arrays(TriMesh(d["v"], d["f"]), "cpu")
+
+
+def _trainers(mesh, d):
+    """(net, trainer) of the refiner and the scorer on d's box, from the
+    checkpoints in d["ckpt"] (the bundled weights)."""
+    from sixdof_tpu_torch.models.networks import RefineNet, ScoreNetMultiPair
     from sixdof_tpu_torch.parallel import train as tr
 
-    arrays = make_mesh_arrays(TriMesh(d["v"], d["f"]), "cpu")
+    arrays = _box_arrays(d)
     cfg = tr.TrainConfig(**d["cfg"])
-    out = {}
-    for name, trainer_cls, model in (("refiner", tr.RefinerTrainer, RefineNet(c_in=6)),
-                                     ("scorer", tr.ScorerTrainer, ScoreNetMultiPair(c_in=6))):
-        trainer = trainer_cls(model, arrays, d["K"], d["diameter"], cfg, seed=0,
-                              device_mesh=mesh)
-        out[name] = trainer_step(trainer, torch.Generator().manual_seed(d["seed"]))
-    return out
+    for net, trainer_cls, model in (("refiner", tr.RefinerTrainer, RefineNet),
+                                    ("scorer", tr.ScorerTrainer, ScoreNetMultiPair)):
+        yield net, trainer_cls(model(c_in=6), arrays, d["K"], d["diameter"], cfg,
+                               params=tr.load_init_params(d["ckpt"], net), device_mesh=mesh)
+
+
+def trainer_rank(mesh, d):
+    """One refiner step and one scorer step from the bundled weights, each
+    rank rendering its slice of the same draws: the loss, every 997th entry
+    of the averaged gradients, the largest entry and the trunk's largest."""
+    return {net: trainer_step(trainer, torch.Generator().manual_seed(d["seed"]))
+            for net, trainer in _trainers(mesh, d)}
 
 
 def trainer_step(trainer, gen):
     """One step of @trainer from @gen, split to read the averaged gradients
-    before Adam."""
+    (split weights gathered whole) before Adam."""
+    from sixdof_tpu_torch.parallel.tensor_parallel import full_tensors
+
     loss = trainer.gradients(trainer.batch(gen))
-    grads = torch.cat([p.grad.reshape(-1) for p in trainer.model.parameters()])
+    grads = full_tensors(trainer.model, grads=True)
+    flat = torch.cat([g.reshape(-1) for g in grads.values()])
     trainer.optimizer.step()
-    return dict(loss=float(loss), grads=_np(grads[::997]), grad_max=float(grads.abs().max()))
+    return dict(loss=float(loss), grads=_np(flat[::997]), grad_max=float(flat.abs().max()),
+                trunk_max=_trunk_max(grads))
+
+
+def _trunk_max(tensors):
+    """The largest entry of the convolution trunk's tensors."""
+    return max(float(t.abs().max()) for k, t in tensors.items()
+               if k.startswith(("encodeA", "encoderA")))
+
+
+def _digests(tensors):
+    import hashlib
+
+    return {k: hashlib.sha1(_np(t).tobytes()).hexdigest() for k, t in tensors.items()}
+
+
+def _local_rows(net, batch, mesh, L):
+    """This data index's part of a whole fixed batch: the refiner's rows,
+    the scorer's scenes (L hypotheses each)."""
+    if net == "refiner":
+        rows = mesh.rows(batch[0].shape[0])
+        return [x[rows] for x in batch]
+    scenes = mesh.rows(batch[2].shape[0])
+    pairs = slice(scenes.start * L, scenes.stop * L)
+    return [batch[0][pairs], batch[1][pairs], batch[2][scenes], batch[3][scenes]]
+
+
+def tensor_parallel_rank(mesh, d):
+    """The refiner and the scorer from the bundled weights on a (data,
+    model) mesh: the loss and the whole averaged gradients of d's fixed
+    crops (rank 0's gradients only), then one trainer step from d's draws
+    (as trainer_rank) and digests of this rank's parameters after Adam;
+    with d["save"], the refiner written there by save_params and the
+    digests of the whole parameters it gathered."""
+    from sixdof_tpu_torch.parallel.tensor_parallel import (full_state_dict, full_tensors,
+                                                           split_parameters)
+    from sixdof_tpu_torch.parallel.train import save_params
+
+    out = {}
+    for net, trainer in _trainers(mesh, d):
+        fixed = [torch.as_tensor(x) for x in d["fixed"][net]]
+        loss = trainer.gradients(_local_rows(net, fixed, mesh, d["cfg"]["n_hypotheses"]))
+        grads = full_tensors(trainer.model, grads=True)
+        res = dict(fixed_loss=float(loss), fixed_trunk_max=_trunk_max(grads),
+                   split=sorted(split_parameters(trainer.model)))
+        if mesh.rank == 0:
+            res["fixed_grads"] = {k: _np(g) for k, g in grads.items()}
+        res["step"] = trainer_step(trainer, torch.Generator().manual_seed(d["seed"]))
+        res["digests"] = _digests(dict(trainer.model.named_parameters()))
+        if d.get("save") and net == "refiner":
+            res["saved"] = save_params(d["save"], net, trainer.model)
+            res["saved_digests"] = _digests(full_state_dict(trainer.model))
+        out[net] = res
+    return dict(out, data_rank=mesh.data_rank, model_rank=mesh.model_rank,
+                seconds=dict(mesh.seconds))
+
+
+def mesh_capture_rank(mesh, d):
+    """The mesh's layout (each axis's ranks, gathered over it) and the
+    make_mesh errors on this world, then capture_rank on the mesh."""
+    from sixdof_tpu_torch.parallel.sharding import all_gather, make_mesh
+
+    me = torch.tensor([float(mesh.rank)])
+    errors = []
+    for n_data, n_model in ((3, 2), (None, 3), (1, 2)):
+        try:
+            make_mesh(n_data=n_data, n_model=n_model)
+        except ValueError as e:
+            errors.append(str(e))
+    return dict(data_rank=mesh.data_rank, model_rank=mesh.model_rank, shape=dict(mesh.shape),
+                data_axis=_np(all_gather(me, mesh)),
+                model_axis=_np(all_gather(me, mesh, axis="model")), errors=errors,
+                capture=capture_rank(mesh, d))
 
 
 def field_rank(mesh, d):
