@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port's pose server, capture path, trainer, BOP
-campaign, live-camera loop, neural object field, H5 pose-pair path and its
-multi-device path (the data and the model axis) on one NVIDIA card and
-check them.
+campaign, live-camera loop, neural object field, H5 pose-pair path, its
+multi-device path (the data and the model axis) and its start-up path on
+one NVIDIA card and check them.
 
     python3 chip_smoke.py
 
@@ -145,6 +145,19 @@ non-zero without printing the final result:
            loaded by the predictors and within 6 steps of lr of the
            unsharded one's.  Seconds, data- and model-axis collective
            seconds, peak memory and K1 and K2 launches of each rank
+  cold     the start-up path in fresh processes: tools/precompile_torch.py
+           on synth_box (the libraries found built, the engine's warm-up
+           parts and their K1/K2 launches), then
+           tools/measure_cold_start_torch.py, the app at its defaults on
+           frames 0-5 with captures on 2 and 4, its timeline from
+           interpreter start (seconds to the first pose and the first defect
+           cloud, first and second register, each capture, the warm-up's
+           parts and how long frame 0's register waited for it): (a)
+           --precompile 0 and (b) --precompile 1 on the built libraries, (c)
+           --precompile 1 building them anew, (d) (b) with glibc's malloc
+           held to one arena; (a) and (b) bit-equal (poses, ICP transforms,
+           defect clouds) with the same loop launches, and (b)'s warm-up
+           launching K1 and K2 (counted apart from the loop's)
   kernels  each kernel the run launched, with its check and numbers (K1's
            launches: the pose, train, bop, live, field and h5 phases' and
            multi's ranks'; K2's: the run loop's in capture (b),
@@ -153,8 +166,8 @@ non-zero without printing the final result:
 The last line is {"ok": true, "device": {...}}.  Without CUDA the script
 exits 1 before any result.  `run(device="cpu", small=True)` rehearses every
 phase at a tiny size through the plain versions, where the accuracy
-ceilings and the loop's fitness are reported but not held
-(tests/test_torch_chip_smoke.py).
+ceilings and the loop's fitness are reported but not held, and phase cold
+runs (b) alone (tests/test_torch_chip_smoke.py).
 """
 from __future__ import annotations
 
@@ -831,7 +844,7 @@ def _loop_args(cfg, scene, small, debug_dir, extra):
     refine iteration a frame."""
     from sixdof_tpu_torch.app import run as app_run
 
-    argv = ["--test_scene_dir", scene, "--debug_dir", debug_dir] + extra
+    argv = ["--test_scene_dir", scene, "--debug_dir", debug_dir, "--precompile", "0"] + extra
     if small:
         argv += ["--shorter_side", str(cfg.shorter_side), "--max_hypotheses", "8",
                  "--prune_to", str(cfg.prune_to), "--est_refine_iter", "1",
@@ -2400,6 +2413,132 @@ def phase_multi(device, small):
     return dict(k1_launches=k1, k2_launches=k2)
 
 
+COLD_TIMEOUT = 300.0  # one fresh process of the timeline tool
+# the cold phase's runs, (flags, environment): (a) and (b) on the libraries
+# phase build built, (c) building them anew in an empty directory, (d) as
+# (b) with glibc's malloc held to one arena (a new thread's allocations
+# otherwise come from an arena of its own, which the warm-up thread fills)
+COLD_RUNS = {"a": (["--no-precompile"], {}), "b": ([], {}), "c": (["--cold-build"], {}),
+             "d": ([], {"MALLOC_ARENA_MAX": "1"})}
+COLD_ARRAYS = ("poses", "icp_frames", "icp_tfs", "icp_fitness", "cloud_sizes", "clouds")
+
+
+def _small_scene(scene, out):
+    """@scene with the CPU rehearsal's ICP parameters (_icp_parameters) in
+    its configs: the other entries are links to @scene's."""
+    import shutil
+
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    for entry in os.listdir(scene):
+        if entry != "configs":
+            os.symlink(os.path.abspath(os.path.join(scene, entry)), os.path.join(out, entry))
+    shutil.copytree(os.path.join(scene, "configs"), os.path.join(out, "configs"))
+    path = os.path.join(out, "configs", "icp_parameters.json")
+    with open(path) as f:
+        params = _icp_parameters(json.load(f), True)
+    with open(path, "w") as f:
+        json.dump(params, f)
+    return out
+
+
+def _tool(name, argv, env, small):
+    """tools/@name run in a fresh process; returns (its last JSON line, its
+    wall seconds from the process's start to its end).  A run that fails
+    raises."""
+    env = dict(os.environ, **env, **({"OMP_NUM_THREADS": "1"} if small else {}))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.join(REPO, "tools", name), *argv],
+                          capture_output=True, text=True, timeout=COLD_TIMEOUT, env=env,
+                          cwd=REPO)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"{name} {' '.join(argv)} failed with exit code "
+                           f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+    return json.loads([x for x in proc.stdout.splitlines() if x.startswith("{")][-1]), wall
+
+
+def _cold_run(name, scene, flags, env, out_dir, small):
+    """One fresh process of tools/measure_cold_start_torch.py on @scene with
+    @flags in @env; returns (its JSON line, its results' arrays, its wall
+    seconds)."""
+    import numpy as np
+
+    npz = os.path.join(out_dir, f"{name}.npz")
+    res, wall = _tool("measure_cold_start_torch.py",
+                      [scene, "--out", npz, "--debug_dir", os.path.join(out_dir, f"debug_{name}"),
+                       *flags], env, small)
+    with np.load(npz) as f:
+        arrays = {k: f[k] for k in COLD_ARRAYS}
+    return res, arrays, wall
+
+
+def _bit_equal(x, y):
+    import numpy as np
+
+    return all(np.array_equal(x[k], y[k]) for k in COLD_ARRAYS)
+
+
+def phase_cold(device, cfg, scene, small):
+    """The start-up path in fresh processes: tools/precompile_torch.py on
+    @scene (the libraries found built, the warm-up's parts), then the
+    timeline tool on @scene at the app's defaults (6 frames, captures every
+    2) as COLD_RUNS lists them.  (a) and (b) must give bit-equal poses, ICP
+    transforms and defect clouds, and the same loop launches; (b)'s warm-up
+    reports its own K1/K2 launches.  The CPU rehearsal (@small) runs (b)
+    alone at a tiny size."""
+    out = os.path.join(REPO, "build", "chip_smoke", "cold")
+    os.makedirs(out, exist_ok=True)
+    flags = []
+    res = {}
+    if not small:
+        res["prebuild"], res["prebuild_wall_s"] = _tool("precompile_torch.py", [scene], {}, small)
+    if small:
+        scene = _small_scene(scene, os.path.join(out, "scene"))
+        flags = ["--device", device.type, "--input_resize", str(cfg.input_resize[0]),
+                 "--max_frames", "3", "--depth_polish", "0", "--track_polish", "0"]
+        flags += ["--shorter_side", str(cfg.shorter_side), "--max_hypotheses", "8",
+                  "--prune_to", str(cfg.prune_to), "--est_refine_iter", "1",
+                  "--track_refine_iter", "1"]
+    names = ["b"] if small else list(COLD_RUNS)
+    runs, arrays = {}, {}
+    for name in names:
+        run_flags, env = COLD_RUNS[name]
+        one, arrays[name], wall = _cold_run(name, scene, run_flags + flags, env, out, small)
+        runs[name] = dict(one, process_wall_s=wall)
+    res["runs"] = runs
+    if not small:
+        res.update(a_vs_b_bit_equal=_bit_equal(arrays["a"], arrays["b"]),
+                   c_vs_a_bit_equal=_bit_equal(arrays["a"], arrays["c"]),
+                   d_vs_a_bit_equal=_bit_equal(arrays["a"], arrays["d"]),
+                   icp_frames=arrays["a"]["icp_frames"].tolist())
+    emit({"phase": "cold", **_jsonable(res)})
+    check_cold(res, on_card=device.type == "cuda", small=small)
+    return res
+
+
+def check_cold(res, on_card, small):
+    """phase cold's gates (see phase_cold); raises on the first that fails."""
+    runs = res["runs"]
+    warm = runs["b"]
+    if set(warm["precompile_record"]["seconds"]) < {"build", "register", "track", "capture"}:
+        raise RuntimeError(f"the warm-up did not run every part: {warm['precompile_record']}")
+    if on_card:
+        launched = warm["precompile_record"]["launches"]
+        if not (launched.get("rasterize_zbuffer") and launched.get("ray_mesh_intersect")):
+            raise RuntimeError(f"the warm-up did not launch K1 and K2: {launched}")
+    if small:
+        return
+    if res["icp_frames"] != [0, 2, 4]:
+        raise RuntimeError(f"the cold runs captured on frames {res['icp_frames']}, not 0, 2, 4")
+    if not res["a_vs_b_bit_equal"]:
+        raise RuntimeError("the runs with and without the warm-up disagree")
+    same = ("loop_k1_launches", "loop_k2_launches")
+    if any(runs["a"][k] != runs["b"][k] for k in same):
+        raise RuntimeError("the warm-up changed the loop's launch counts: "
+                           f"{[(runs['a'][k], runs['b'][k]) for k in same]}")
+
+
 def _jsonable(x):
     """numpy values as lists and floats, for the phase's JSON line."""
     import numpy as np
@@ -2533,6 +2672,8 @@ def run(device="cuda", small=False):
     # (ranks on the card; their launches are counted in the ranks)
     h5 = phase_h5(dev, scene, small)
     multi = phase_multi(dev, small)
+    # the start-up path in fresh processes, with and without the warm-up
+    phase_cold(dev, cfg, scene, small)
 
     main_shape = k1[0]
     kernels = [{

@@ -10,7 +10,9 @@ standalone demo `demo_data` / `demo_icp`).  The restarts and the z ladder
 run as one batched device call each (`ops/icp.py`); a capture event is one
 device program whose defect ray trace runs in kernel K2; the FPFH features
 and the RANSAC trials are host numpy (`ops/features.py`).  Units:
-millimetres, the depth camera's frame.
+millimetres, the depth camera's frame.  `refine_pose_with_icp`,
+`capture_event` and `capture_event_async` first join the engine's warm-up
+thread (`estimater.join_precompile`), whose error they raise.
 
     python -m sixdof_tpu_torch.app.icp_pipeline [scene_dir]
 
@@ -30,6 +32,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..estimater import join_precompile
 from ..io.mesh_io import PointCloud, load_point_cloud
 from ..ops import icp as icp_ops
 from ..ops import pointcloud as pc
@@ -404,6 +407,7 @@ def capture_event(source_processed, target_processed, current_result, parameter,
     @intensities: colour-frame heatmap rays (defect_projection.compute_rays).
     The device constants and the ray-trace route (kernel or plain) come from
     @ctx.  Returns (RegistrationResult, intersection PointCloud)."""
+    join_precompile()
     parameters = copy.deepcopy(parameter)
     best_transformation, tfs, thresholds, base_thresh, max_iter, K = _build_restarts(
         current_result, parameters, n_restarts, seed
@@ -481,6 +485,7 @@ def capture_event_async(source_processed, pose_dev, tf_to_centered, parameter,
     CENTRED-mesh pose in colour-camera metres (`PendingPose.device_pose()`
     or `FoundationPose.pose_last`); @tf_to_centered:
     FoundationPose.get_tf_to_centered_mesh()."""
+    join_precompile()
     noise_d, thr_d, base_thresh, max_iter, K = ctx.restarts_device(parameter, n_restarts, seed)
     tf_center_d, c2d_d = ctx.pose_consts_device(tf_to_centered)
     rays_d, ray_mask_d, intensities = ctx.rays_device(ray_dirs, ray_mask, intensities)
@@ -505,6 +510,7 @@ def refine_pose_with_icp(source, target, background, initial_fp_transformation, 
     @initial_fp_transformation: object in scene (depth camera, mm).
     Returns (target_transformed, best_result_icp, z_adjustment,
     target_processed)."""
+    join_precompile()
     dev = resolve_device(device)
     param = copy.deepcopy(parameters)
     initial_fp_transformation = np.array(initial_fp_transformation, dtype=np.float64)

@@ -26,9 +26,12 @@ default) or, with `--no-demo`, from the live Azure Kinect
 (`io/readers.py::KinectReader`, which needs `pykinect_azure`; with
 `--capture_background true` it captures the empty scene's cloud first).
 What the viewer shows is also kept on a `LoopState` the caller may pass.
-Not ported: the TPU compile-hiding threads (`--precompile` is accepted and
-ignored).  The
-networks load `--refiner_ckpt` and `--scorer_ckpt`, by default the numpy
+With `--precompile 1` (the default) the engine's warm-up thread
+(`FoundationPose.precompile_async`) starts once the reader exists: it
+builds the kernel libraries and runs register's cascade, a track step and
+one capture program at the scene's shapes while the heatmap and the first
+frame are read; frame 0's register, the track steps and the capture
+entries join it, and an error in it fails the run.  The networks load `--refiner_ckpt` and `--scorer_ckpt`, by default the numpy
 export of the bundled weights (`weights_torch/`, written by
 `tools/export_torch_weights.py`) when it exists, else they start from a
 seed, as the JAX app does with `weights/`.
@@ -96,14 +99,20 @@ class LoopState:
     `update_dash_data`: the accumulated defect clouds (depth camera, mm),
     the mesh posed by the latest ICP result, and the frame and registration
     result of frame 0's ICP refinement and of each capture; the viewer's
-    bound (host, port) while it serves; and the loop's per-stage host wall
-    times."""
+    bound (host, port) while it serves; the loop's per-stage host wall
+    times; and the start-up timeline: (label, time.perf_counter()) marks
+    from the viewer's start to the first defect cloud, then each capture's
+    start and end."""
 
     intersection_pcds: list = field(default_factory=list)
     target_mesh: TriMesh = None
     captures: list = field(default_factory=list)  # (frame, RegistrationResult)
     viewer_address: tuple = None
     stages: dict = field(default_factory=dict)  # StageTimer.summary() at the end
+    marks: list = field(default_factory=list)  # (label, perf_counter seconds)
+
+    def mark(self, label):
+        self.marks.append((label, time.perf_counter()))
 
     def update(self, intersection_pcds, target_mesh):
         self.intersection_pcds = intersection_pcds
@@ -128,6 +137,7 @@ def main(args, device=None, refiner=None, scorer=None, plain_raytrace=False, sta
         server = web_vis.make_server(None, capture_queue, *viewer_address)
         state.viewer_address = server.server_address[:2]
         threading.Thread(target=server.serve_forever, name="defect-viewer", daemon=True).start()
+        state.mark("viewer")
     try:
         return _loop(args, dev, refiner, scorer, plain_raytrace, state, capture_queue)
     finally:
@@ -146,23 +156,15 @@ def _loop(args, dev, refiner, scorer, plain_raytrace, state, capture_queue):
     os.makedirs(f"{debug_dir}/ob_in_cam", exist_ok=True)
     to_origin, extents = oriented_bounds(mesh)
     bbox = np.stack([-extents / 2, extents / 2], axis=0).reshape(2, 3)
+    state.mark("mesh")
 
     if refiner is None:
         refiner = PoseRefinePredictor(dev, ckpt_dir=_ckpt(args.refiner_ckpt, "refiner"))
     if scorer is None:
         scorer = ScorePredictor(dev, ckpt_dir=_ckpt(args.scorer_ckpt, "scorer"))
-    est = FoundationPose(model_pts=mesh.vertices, model_normals=mesh.vertex_normals, mesh=mesh,
-                         scorer=scorer, refiner=refiner, device=dev, debug=debug,
-                         debug_dir=debug_dir, prune_to=args.prune_to or None,
-                         prune_schedule=_parse_prune_schedule(args.prune_schedule),
-                         track_crop=bool(args.track_crop), polish_top=args.polish_top,
-                         polish_iters=args.polish_iters, depth_polish=bool(args.depth_polish),
-                         track_polish=bool(args.track_polish))
-    if args.max_hypotheses and len(est.rot_grid) > args.max_hypotheses:
-        step = len(est.rot_grid) // args.max_hypotheses
-        est.rot_grid = est.rot_grid[::step][: args.max_hypotheses]
-        logging.info(f"rotation grid capped to {len(est.rot_grid)} hypotheses")
-    logging.info("Estimator initialization done")
+    state.mark("checkpoints")
+    est = build_engine(args, dev, mesh, refiner, scorer)
+    state.mark("engine")
     if args.demo:
         reader = DataReader(args.test_scene_dir, shorter_side=args.shorter_side, zfar=np.inf,
                             arguments=args)
@@ -170,6 +172,13 @@ def _loop(args, dev, refiner, scorer, plain_raytrace, state, capture_queue):
         logging.info("live demo")
         reader = KinectReader(args.test_scene_dir, capture_background=args.capture_background,
                               shorter_side=args.shorter_side, zfar=np.inf, arguments=args)
+    state.mark("reader")
+    if getattr(args, "precompile", 1):
+        est.precompile_async(reader.color_K, (reader.color_H, reader.color_W),
+                             iteration=args.est_refine_iter,
+                             track_iteration=args.track_refine_iter,
+                             icp_parameters=reader.parameters)
+        state.mark("precompile started")
 
     intersection_pcds = []
     frame_times = []
@@ -243,6 +252,7 @@ def _loop(args, dev, refiner, scorer, plain_raytrace, state, capture_queue):
 
     reader.update()
     heatmap, overlay = heatmap_overlay(0)
+    state.mark("heatmap")
     max_frames = min(args.max_frames or len(reader), len(reader))  # a live reader has no end
     pipeline_depth = args.track_pipeline
     async_mode = debug < 1 and pipeline_depth > 0
@@ -258,9 +268,11 @@ def _loop(args, dev, refiner, scorer, plain_raytrace, state, capture_queue):
             continue
         if i == 0:
             mask = reader.get_mask(color, i).astype(bool)
+            state.mark("frame 0 loaded")
             with timer.stage("register"):
                 pose = est.register(K=reader.color_K, rgb=color, depth=depth, ob_mask=mask,
                                     iteration=args.est_refine_iter)
+            state.mark("first pose")
             initial_transformation = to_initial_tf(pose)
             with timer.stage("icp_refine"):
                 _, initial_icp_result, _, target_processed = refine_pose_with_icp(
@@ -281,6 +293,7 @@ def _loop(args, dev, refiner, scorer, plain_raytrace, state, capture_queue):
                                             plain_raytrace=plain_raytrace)
             defect_pcd.transform(reader.color_to_depth)
             intersection_pcds.append(defect_pcd)
+            state.mark("first defect cloud")
             if debug >= 2:
                 save_overlay(overlay, f"{debug_dir}/overlay/overlay_{i}.png")
             previous_transformation = initial_icp_result.transformation
@@ -310,6 +323,7 @@ def _loop(args, dev, refiner, scorer, plain_raytrace, state, capture_queue):
                 detect_defect = True
             if detect_defect:
                 heatmap, overlay = heatmap_overlay(i)
+                state.mark(f"capture {i} start")
                 with timer.stage("capture"):
                     source_processed, _, _ = preprocess_source(
                         reader.get_source(i), reader.background, reader.parameters, i=i)
@@ -336,6 +350,7 @@ def _loop(args, dev, refiner, scorer, plain_raytrace, state, capture_queue):
                             reader.parameters, reader.target_mesh, rays, ray_mask,
                             intensities, reader.color_to_depth, ctx=capture_ctx)
                         consume_capture(i, initial_transformation, current_result, new_pcd)
+                state.mark(f"capture {i} dispatched" if async_mode else f"capture {i} end")
             elif pose is not None:
                 current_transformation = np.linalg.inv(initial_transformation @ delta_pose)
 
@@ -363,6 +378,24 @@ def _loop(args, dev, refiner, scorer, plain_raytrace, state, capture_queue):
         fps = 1.0 / np.mean(frame_times[1:]) if len(frame_times) > 1 else 1.0 / frame_times[0]
         logging.info(f"frames: {len(frame_times)}  mean FPS (excl. frame 0): {fps:.2f}")
     return frame_times
+
+
+def build_engine(args, dev, mesh, refiner, scorer):
+    """The loop's FoundationPose for @mesh from the command line @args (its
+    switches, the rotation grid capped to `--max_hypotheses`)."""
+    est = FoundationPose(model_pts=mesh.vertices, model_normals=mesh.vertex_normals, mesh=mesh,
+                         scorer=scorer, refiner=refiner, device=dev, debug=args.debug,
+                         debug_dir=args.debug_dir, prune_to=args.prune_to or None,
+                         prune_schedule=_parse_prune_schedule(args.prune_schedule),
+                         track_crop=bool(args.track_crop), polish_top=args.polish_top,
+                         polish_iters=args.polish_iters, depth_polish=bool(args.depth_polish),
+                         track_polish=bool(args.track_polish))
+    if args.max_hypotheses and len(est.rot_grid) > args.max_hypotheses:
+        step = len(est.rot_grid) // args.max_hypotheses
+        est.rot_grid = est.rot_grid[::step][: args.max_hypotheses]
+        logging.info(f"rotation grid capped to {len(est.rot_grid)} hypotheses")
+    logging.info("Estimator initialization done")
+    return est
 
 
 def _ckpt(path, net):
@@ -424,8 +457,10 @@ def build_parser():
     parser.add_argument("--max_hypotheses", type=int, default=None,
                         help="cap the rotation grid")
     parser.add_argument("--precompile", type=int, default=1,
-                        help="accepted and ignored: the JAX app compiles its TPU programs "
-                             "ahead with it; the port has nothing to compile ahead")
+                        help="warm up at start (1 = on): a background thread builds the "
+                             "kernels and runs register, a track step and a capture once at "
+                             "the scene's shapes; the first register, track and capture "
+                             "join it")
     parser.add_argument("--track_pipeline", type=int, default=pc.track_pipeline,
                         help="tracked-pose readback pipeline depth (0 = sync every frame)")
     parser.add_argument("--refiner_ckpt", type=str, default=pc.refiner_ckpt,

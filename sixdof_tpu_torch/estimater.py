@@ -14,15 +14,30 @@ refine and score as separate predictor calls, with (at `debug >= 2`) the
 refiner's crops written to `{debug_dir}/vis_refiner.png`.  With a
 `device_mesh` (parallel/sharding.py: one process a rank) every stage splits
 the hypotheses across the ranks, and every rank returns the same pose;
-tracking is not sharded, as in JAX.  The JAX engine also takes the staged
-path while its fused program compiles; the executable cache and background
-precompile exist to hide TPU compile time, and PyTorch runs eagerly, so
-they have no counterpart here.
+tracking is not sharded, as in JAX.
+
+`precompile_async` is the start-up path (the JAX engine's, which compiles
+its programs in background threads): one daemon thread takes, before the
+first real frame, what a process pays once on the card: it builds and
+loads the kernel libraries (`kernels/build.py`, whose hash-named libraries
+are the port's build cache), and runs register's cascade with the depth
+polish, one track step and, given the scene's ICP parameters, one capture
+program on a synthetic frame at the app's shapes, so that the CUDA
+modules, the cuBLAS/cuDNN/cuSOLVER handles and the allocator's first
+segments are there.  It touches no state of the engine, draws from no
+seeded generator and counts its kernel launches apart
+(`precompile_record`).  `register()`, `track_one()` and the capture
+entries (`app/icp_pipeline.py`) join it before their first device work
+(`join_precompile`), and an error in it is raised again there.  Eager
+PyTorch has no compile to detour around, so JAX's staged detour while the
+fused program compiles has no counterpart.
 """
 from __future__ import annotations
 
 import logging
 import os
+import threading
+import time
 from collections import deque
 
 import numpy as np
@@ -30,16 +45,73 @@ import torch
 
 from .device import resolve_device
 from .io.mesh_io import PointCloud, TriMesh
+from .io import png
 from .io.png import write_png_rgb8
+from .kernels import raster, raytrace
+from .kernels.build import build_all, launches_apart
 from .models.predict import (PoseRefinePredictor, ScorePredictor, pack_rgbd, register_pipeline,
                              to_rgb01, track_pose)
 from .ops.depth_filter import bilateral_filter_depth, erode_depth
 from .ops.geometry import compute_mesh_diameter, depth2xyzmap
 from .ops.hypotheses import make_rotation_grid
-from .ops.icp import icp_polish_two_pass
+from .ops.icp import capture_from_pose, icp_polish_two_pass
 from .ops.pointcloud import voxel_down_sample
 from .ops.rasterize import make_mesh_arrays
+from .ops.raytrace import mesh_to_tri_verts
 from .parallel.sharding import pad_hypotheses
+
+_warmups = set()  # warm-ups not joined yet
+_warmups_lock = threading.Lock()
+
+
+class _Warmup:
+    """One engine warm-up thread: what it records (its work's parts, and
+    when it started, finished and was joined, on `time.perf_counter`), and
+    the error it raised (kept for the join)."""
+
+    def __init__(self, work, record):
+        self.record = record
+        self.error = None
+        self.thread = threading.Thread(target=self._run, args=(work,), daemon=True,
+                                       name="sixdof-precompile")
+        with _warmups_lock:
+            _warmups.add(self)
+        self.thread.start()
+
+    def _run(self, work):
+        self.record["started"] = time.perf_counter()
+        try:
+            # autocast is entered per network call by the predict functions,
+            # in this thread, as on the main path
+            with launches_apart(self.record["launches"]), torch.inference_mode():
+                work()
+        except Exception as e:  # raised again at the join
+            self.error = e
+        finally:
+            self.record["finished"] = time.perf_counter()
+
+    def join(self):
+        t0 = time.perf_counter()
+        if self.thread.is_alive():
+            logging.info("waiting for the engine's warm-up")
+        self.thread.join()
+        with _warmups_lock:
+            if self not in _warmups:
+                return
+            _warmups.discard(self)
+        self.record["joined"] = time.perf_counter()
+        self.record["waited_s"] = self.record["joined"] - t0
+        if self.error is not None:
+            raise self.error
+
+
+def join_precompile():
+    """Wait for every engine warm-up that has not been joined; the first one
+    that failed raises its error here (the run fails with it)."""
+    with _warmups_lock:
+        pending = list(_warmups)
+    for w in pending:
+        w.join()
 
 
 class PendingPose:
@@ -130,6 +202,8 @@ class FoundationPose:
         self.refiner = refiner if refiner is not None else PoseRefinePredictor(self.device)
         self.pose_last = None  # per the centred mesh
         self.gt_pose = None  # set by a caller that has one: compute_add_err_to_gt_pose
+        self._warmup = None
+        self.precompile_record = None  # the last warm-up's parts, filled by its thread
 
     # ------------------------------------------------------------- setup --
 
@@ -220,14 +294,18 @@ class FoundationPose:
         src[: len(pts)] = pts
         smask = np.zeros(spad, bool)
         smask[: len(pts)] = True
-        init = np.linalg.inv(p).astype(np.float32)
+        tf = self._polish_two_pass(src, smask, np.linalg.inv(p).astype(np.float32))
+        return np.linalg.inv(tf.cpu().numpy().astype(np.float64))
+
+    def _polish_two_pass(self, src, smask, init):
+        """The depth polish's device ICP of the padded (N,3) cloud @src
+        (@smask valid) from the (4,4) @init (model -> camera inverse)."""
         d = float(self.diameter)
         dev = self.device
-        tf = icp_polish_two_pass(
+        return icp_polish_two_pass(
             torch.as_tensor(src, device=dev), torch.as_tensor(smask, device=dev),
             self._polish_tgt, self._polish_tn, self._polish_tmask,
             torch.as_tensor(init, device=dev), 0.1 * d, 0.05 * d, max(0.02 * d, 0.004))
-        return np.linalg.inv(tf.cpu().numpy().astype(np.float64))
 
     def guess_translation(self, depth, mask, K):
         """Mask-centre backprojection at the median masked depth."""
@@ -247,14 +325,136 @@ class FoundationPose:
         ob_in_cams[:, :3, 3] = self.guess_translation(depth=depth, mask=mask, K=K).reshape(1, 3)
         return ob_in_cams
 
+    # ---------------------------------------------------------- start-up --
+
+    def precompile_async(self, K, image_hw, iteration=5, track_iteration=2,
+                         icp_parameters=None):
+        """Start the warm-up thread (see the module docstring); returns it,
+        or None with a device_mesh (as the JAX engine, whose sharded path
+        compiles per-mesh programs).
+
+        @K: 3x3 intrinsics; @image_hw: (H, W) of the frames register() and
+        track_one() will see; @iteration/@track_iteration: their
+        iterations.  @icp_parameters: the scene's ICP parameters (the
+        reader's); given, the thread also runs one capture program with
+        their restart count and iterations (ops/icp.py::capture_from_pose).
+        Its parts' seconds, the libraries it found built and its K1/K2
+        launches land in `precompile_record`."""
+        if self.device_mesh is not None:
+            return None
+        self._join_precompile()
+        record = {"seconds": {}, "launches": {}, "built_before": {}}
+        self.precompile_record = record
+        H, W = int(image_hw[0]), int(image_hw[1])
+        self._warmup = _Warmup(lambda: self._warm_up(np.asarray(K, dtype=np.float64), H, W,
+                                                     iteration, track_iteration,
+                                                     icp_parameters, record), record)
+        return self._warmup.thread
+
+    def _join_precompile(self):
+        """Wait for this engine's warm-up; its error is raised here."""
+        w, self._warmup = self._warmup, None
+        if w is not None:
+            w.join()
+
+    def _warm_up(self, K, H, W, iteration, track_iteration, icp_parameters, record):
+        """The warm-up thread's work on a synthetic frame: a plane at the
+        object's distance, every hypothesis of the rotation grid in front of
+        the camera.  Nothing it computes is kept."""
+        dev = self.device
+        cuda = dev.type == "cuda"
+
+        def part(name, fn):
+            t0 = time.perf_counter()
+            out = fn()
+            if cuda:
+                torch.cuda.current_stream(dev).synchronize()
+            record["seconds"][name] = time.perf_counter() - t0
+            return out
+
+        libraries = (raster.LIBRARY, raytrace.LIBRARY, png.LIBRARY) if cuda else (png.LIBRARY,)
+        record["built_before"] = {lib.name: lib.built() for lib in libraries}
+        part("build", lambda: build_all(libraries))
+
+        z0 = max(0.5, 4.0 * float(self.diameter))
+        pose = np.eye(4, dtype=np.float32)
+        pose[2, 3] = z0
+        rgb = np.full((H, W, 3), 128, dtype=np.uint8)
+        depth = np.full((H, W), z0, dtype=np.float32)
+        poses = self.rot_grid.copy()
+        poses[:, :3, 3] = pose[:3, 3]
+
+        def register():
+            self._cascade(poses, rgb, self._filtered_depth(depth), K, iteration)[0].cpu()
+
+        part("register", register)
+        if self.depth_polish:  # on the polish's smallest cloud bucket
+            src = self._polish_tgt[:1024] + torch.as_tensor(pose[:3, 3], device=dev)
+            smask = torch.ones(len(src), dtype=torch.bool, device=dev)
+            part("depth_polish", lambda: self._polish_two_pass(src, smask, np.linalg.inv(pose))
+                 .cpu())
+        pose_t = torch.as_tensor(pose, device=dev).reshape(1, 4, 4)
+        depth_mm = np.round(depth * 1000.0).astype(np.uint16)
+        part("track", lambda: self._readback(
+            [self._track_step(pose_t, rgb, depth_mm, K, track_iteration)]))
+        if icp_parameters is not None:
+            part("capture", lambda: self._readback(self._capture_program(pose_t,
+                                                                          icp_parameters)))
+
+    def _readback(self, tensors):
+        """Copy @tensors to pinned host memory as PendingPose and
+        PendingCapture do (the pinned allocator's first blocks), and wait."""
+        if self.device.type != "cuda":
+            return [t.cpu() for t in tensors]
+        host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
+        for h, t in zip(host, tensors):
+            h.copy_(t, non_blocking=True)
+        torch.cuda.current_stream(self.device).synchronize()
+        return host
+
+    def _capture_program(self, pose_t, parameters):
+        """One capture program (restart ICP + the defect ray trace through
+        K2) from @pose_t with the restarts and iterations of @parameters,
+        on the engine's mesh in millimetres: its sampled surface as the
+        target, part of it as the scene cloud, and a cone of rays."""
+        dev = self.device
+        f32 = dict(dtype=torch.float32, device=dev)
+        n_restarts = int(parameters.get("run_icp", {}).get("n_restarts", 50))
+        max_iter = int(parameters.get("run_icp", {}).get("max_iter", 30))
+        thresh = float(parameters["refine_registration"]["distance_threshold"])
+        max_pcd = int(parameters.get("preprocess_target", {}).get("max_pcd", 4096))
+
+        def padded(pts, n):  # the capture's power-of-two buckets (at least 1024)
+            size = 1 << int(np.ceil(np.log2(max(n, 1024))))
+            out = torch.zeros((size, 3), **f32)
+            out[: min(n, len(pts))] = pts[:n]
+            mask = torch.zeros(size, dtype=torch.bool, device=dev)
+            mask[: min(n, len(pts))] = True
+            return out, mask
+
+        tgt, tgt_mask = padded(self._polish_tgt_small * 1000.0, max_pcd)
+        tgt_n, _ = padded(self._polish_tn_small, max_pcd)
+        src, src_mask = padded(self._polish_tgt_small * 1000.0, 1024)
+        tri, tri_mask = mesh_to_tri_verts(self.mesh.vertices * 1000.0, self.mesh.faces)
+        a = np.linspace(-0.05, 0.05, 32)
+        rays = np.stack(np.broadcast_arrays(a[:, None], a[None, :], 1.0), -1).reshape(-1, 3)
+        rays = rays / np.linalg.norm(rays, axis=-1, keepdims=True)
+        out = capture_from_pose(
+            src, src_mask, tgt, tgt_n, tgt_mask, pose_t,
+            torch.as_tensor(self.get_tf_to_centered_mesh(), **f32), torch.eye(4, **f32),
+            torch.eye(4, **f32).expand(n_restarts, 4, 4), torch.full((n_restarts,), thresh, **f32),
+            thresh, torch.as_tensor(tri, device=dev), torch.as_tensor(tri_mask, device=dev),
+            torch.as_tensor(rays, **f32), torch.ones(len(rays), dtype=torch.bool, device=dev),
+            torch.eye(4, **f32), max_iter=max_iter)
+        return list(out)
+
     # ------------------------------------------------------------- infer --
 
     def register(self, K, rgb, depth, ob_mask, iteration=5):
         """Global pose estimation over the rotation grid: the coarse-to-fine
         cascade (models/predict.py::register_pipeline), then the depth polish."""
-        dev = self.device
-        depth_t = torch.as_tensor(np.asarray(depth), dtype=torch.float32, device=dev)
-        depth_t = bilateral_filter_depth(erode_depth(depth_t, radius=2), radius=2)
+        self._join_precompile()
+        depth_t = self._filtered_depth(depth)
         depth_np = depth_t.cpu().numpy()
         valid = (depth_np >= 0.001) & (np.asarray(ob_mask) > 0)
         if valid.sum() < 4:
@@ -264,9 +464,32 @@ class FoundationPose:
         poses = self.generate_random_pose_hypo(K=K, rgb=rgb, depth=depth_np, mask=ob_mask)
         if self.debug >= 2 or self.device_mesh is not None:
             return self._register_staged(K, rgb, depth_t, depth_np, ob_mask, poses, iteration)
+        poses_sorted, scores_sorted = self._cascade(poses, rgb, depth_t, K, iteration)
+        poses_np = poses_sorted.cpu().numpy().copy()
+        scores_np = scores_sorted.cpu().numpy()
+        logging.info(f"sorted scores (top5): {scores_np[:5]}")
+        if self.depth_polish:
+            poses_np[0] = self._depth_polish(poses_np[0], depth_np, ob_mask, K)
+        self.pose_last = poses_np[0]
+        self._crop_pose_host = np.asarray(poses_np[0], dtype=np.float64)
+        self._pose_hist.clear()
+        self._last_center_px = None
+        self.poses = poses_np
+        self.scores = scores_np
+        return poses_np[0] @ self.get_tf_to_centered_mesh()
+
+    def _filtered_depth(self, depth):
+        """The frame's depth on the device, eroded and bilateral-filtered."""
+        depth_t = torch.as_tensor(np.asarray(depth), dtype=torch.float32, device=self.device)
+        return bilateral_filter_depth(erode_depth(depth_t, radius=2), radius=2)
+
+    def _cascade(self, poses, rgb, depth_t, K, iteration):
+        """The fused register cascade from the (N,4,4) hypotheses @poses on
+        the filtered @depth_t.  Returns (sorted poses, sorted scores)."""
+        dev = self.device
         ref, sc = self.refiner, self.scorer
         score_hw = tuple(sc.cfg["input_resize"])
-        poses_sorted, scores_sorted = register_pipeline(
+        return register_pipeline(
             ref.model, sc.model, self.mesh_tensors,
             torch.as_tensor(poses, dtype=torch.float32, device=dev), to_rgb01(rgb, dev), depth_t,
             torch.as_tensor(K, dtype=torch.float32, device=dev), *self._scalar_args(),
@@ -282,18 +505,6 @@ class FoundationPose:
             occ_sub=ref.cfg.get("occ_sub", False), plain_raster=self.plain_raster,
             compute_dtype=ref.compute_dtype,
         )
-        poses_np = poses_sorted.cpu().numpy().copy()
-        scores_np = scores_sorted.cpu().numpy()
-        logging.info(f"sorted scores (top5): {scores_np[:5]}")
-        if self.depth_polish:
-            poses_np[0] = self._depth_polish(poses_np[0], depth_np, ob_mask, K)
-        self.pose_last = poses_np[0]
-        self._crop_pose_host = np.asarray(poses_np[0], dtype=np.float64)
-        self._pose_hist.clear()
-        self._last_center_px = None
-        self.poses = poses_np
-        self.scores = scores_np
-        return poses_np[0] @ self.get_tf_to_centered_mesh()
 
     def _pad(self, poses):
         """(@poses padded to the mesh's data axis, their count), as JAX's
@@ -427,7 +638,7 @@ class FoundationPose:
         whole frame goes up (no upload crop)."""
         if self.pose_last is None:
             raise RuntimeError("track_one needs a pose: call register first")
-        ref = self.refiner
+        self._join_precompile()
         dev = self.device
         rgb_np = np.ascontiguousarray(np.asarray(rgb))
         if rgb_np.dtype != np.uint8:
@@ -446,21 +657,12 @@ class FoundationPose:
             K_use = K_use.copy()
             K_use[0, 2] -= ox
             K_use[1, 2] -= oy
-        rgbd = torch.from_numpy(pack_rgbd(np.ascontiguousarray(rgb_np),
-                                          np.ascontiguousarray(depth_np))).to(dev)
         if isinstance(self.pose_last, torch.Tensor):
             pose_last = self.pose_last.reshape(1, 4, 4)
         else:
             pose_last = torch.as_tensor(np.asarray(self.pose_last).reshape(1, 4, 4),
                                         dtype=torch.float32, device=dev)
-        pose, _ = track_pose(
-            ref.model, self.mesh_tensors, pose_last, rgbd,
-            torch.as_tensor(K_use, dtype=torch.float32, device=dev), *self._scalar_args(),
-            iterations=int(iteration), out_hw=tuple(ref.cfg["input_resize"]),
-            normalize_xyz=bool(ref.cfg["normalize_xyz"]), rot_rep=ref.cfg["rot_rep"],
-            backface_cull=self.backface_cull, occ_sub=ref.cfg.get("occ_sub", False),
-            plain_raster=self.plain_raster, compute_dtype=ref.compute_dtype,
-            trans_rep=ref.cfg["trans_rep"], **self._track_polish_kwargs())
+        pose = self._track_step(pose_last, rgb_np, depth_np, K_use, iteration)
         self.pose_last = pose  # the chain stays on the device
         if not sync:
             pending = PendingPose(pose, self.get_tf_to_centered_mesh())
@@ -469,3 +671,21 @@ class FoundationPose:
         pose_np = pose.cpu().numpy().reshape(4, 4).astype(np.float64)
         self._push_pose_hist(pose_np)
         return pose_np @ self.get_tf_to_centered_mesh()
+
+    def _track_step(self, pose_last, rgb_u8, depth_u16, K, iteration):
+        """One track step on the device from the (1,4,4) @pose_last on the
+        uint8 colour and uint16-mm depth (one packed upload).  Returns the
+        (1,4,4) pose."""
+        ref = self.refiner
+        dev = self.device
+        rgbd = torch.from_numpy(pack_rgbd(np.ascontiguousarray(rgb_u8),
+                                          np.ascontiguousarray(depth_u16))).to(dev)
+        pose, _ = track_pose(
+            ref.model, self.mesh_tensors, pose_last, rgbd,
+            torch.as_tensor(K, dtype=torch.float32, device=dev), *self._scalar_args(),
+            iterations=int(iteration), out_hw=tuple(ref.cfg["input_resize"]),
+            normalize_xyz=bool(ref.cfg["normalize_xyz"]), rot_rep=ref.cfg["rot_rep"],
+            backface_cull=self.backface_cull, occ_sub=ref.cfg.get("occ_sub", False),
+            plain_raster=self.plain_raster, compute_dtype=ref.compute_dtype,
+            trans_rep=ref.cfg["trans_rep"], **self._track_polish_kwargs())
+        return pose

@@ -14,7 +14,7 @@ import ctypes
 
 import torch
 
-from .build import KernelLibrary
+from .build import KernelLibrary, count_launch
 
 # plain version's chunking: (POSE_CHUNK, TRI_CHUNK, 4, H*W) temporaries
 POSE_CHUNK, TRI_CHUNK = 8, 32
@@ -77,7 +77,8 @@ def rasterize_zbuffer(coef, counts, H, W):
     """Z-buffer of (B,T,4,3) plane coefficients with per-pose counts.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (one launch per call, counted in `rasterize_zbuffer.launches`).
+    (one launch per call, counted in `rasterize_zbuffer.launches`, or apart
+    in a thread inside `build.launches_apart`).
     Returns (zbuf (B,H*W) float32, tid (B,H*W) int32).
     """
     if coef.device.type == "cpu":
@@ -100,7 +101,7 @@ def rasterize_zbuffer(coef, counts, H, W):
                             tid.data_ptr(), B, T, H, W, stream)
     if rc != 0:
         raise RuntimeError(f"raster_zbuffer launch failed: CUDA error {rc}")
-    rasterize_zbuffer.launches += 1
+    count_launch(rasterize_zbuffer)
     return zbuf, tid
 
 

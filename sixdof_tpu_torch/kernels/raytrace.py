@@ -17,7 +17,7 @@ import ctypes
 
 import torch
 
-from .build import KernelLibrary
+from .build import KernelLibrary, count_launch
 
 # the plain version's ray chunk (sixdof_tpu/ops/raytrace.py::_RAY_CHUNK):
 # (RAY_CHUNK, T) temporaries
@@ -246,7 +246,8 @@ def ray_mesh_intersect(origins, dirs, valid, tris):
     bool; @tris: (T,9) float32 from `pack_tris`.  Returns t (N,) float32,
     +inf for a miss or an invalid ray.  CPU tensors take the plain version;
     CUDA tensors launch the kernel (one launch per call, counted in
-    `ray_mesh_intersect.launches`).
+    `ray_mesh_intersect.launches`, or apart in a thread inside
+    `build.launches_apart`).
     """
     if origins.device.type == "cpu":
         return ray_mesh_intersect_plain(origins, dirs, valid, tris)
@@ -272,7 +273,7 @@ def ray_mesh_intersect(origins, dirs, valid, tris):
                                 threads_per_ray_log2(N), stream)
     if rc != 0:
         raise RuntimeError(f"ray_mesh_intersect launch failed: CUDA error {rc}")
-    ray_mesh_intersect.launches += 1
+    count_launch(ray_mesh_intersect)
     return t
 
 

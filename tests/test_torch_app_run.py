@@ -52,7 +52,7 @@ def _run(tmp_path, debug):
         "--max_frames", str(N_FRAMES), "--capture_every", "2", "--max_hypotheses", "8",
         "--prune_to", "4", "--est_refine_iter", "1", "--track_refine_iter", "1",
         "--debug", str(debug), "--debug_dir", str(tmp_path / f"debug{debug}"),
-        "--device", "cpu"])
+        "--device", "cpu", "--precompile", "0"])
     refiner = PoseRefinePredictor("cpu", cfg={"input_resize": (32, 32)}, seed=0)
     scorer = ScorePredictor("cpu", cfg={"input_resize": (32, 32)}, seed=1)
     state = trun.LoopState()

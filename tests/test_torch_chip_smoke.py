@@ -4,9 +4,10 @@ weights, the accuracy phase, the capture path and the run loop twice, the
 loop at --debug 2 and in viewer mode, the point-click path on a crust, the
 --icp registration, the trainer, the BOP campaign, the live-camera loop
 against a stand-in Kinect, the neural object field, the H5 path and the
-multi-device path on gloo ranks of the CPU, its model axis too) and the
-kernels line has the keys the card run reports; a phase that fails stops
-the script before its result."""
+multi-device path on gloo ranks of the CPU, its model axis too, and the
+start-up timeline in a fresh process) and the kernels line has the keys
+the card run reports; a phase that fails stops the script before its
+result."""
 import json
 import os
 import sys
@@ -36,7 +37,7 @@ def test_chip_smoke_rehearsal_on_cpu(capsys):
         < phases.index("debug") < phases.index("viewer") < phases.index("point_click") \
         < phases.index("icp_global") < phases.index("train_k1") < phases.index("train") \
         < phases.index("bop") < phases.index("live") < phases.index("field") \
-        < phases.index("h5") < phases.index("multi")
+        < phases.index("h5") < phases.index("multi") < phases.index("cold")
     assert lines[-1] == {"kernels": kernels}
     assert [k["name"] for k in kernels] == ["raster_zbuffer", "ray_mesh_intersect"]
     for k in kernels:
@@ -192,6 +193,25 @@ def test_chip_smoke_rehearsal_on_cpu(capsys):
             assert t["ckpt_held_split_entries"] > 0
             assert t["ckpt_held_max_abs_diff"] <= t["ckpt_bound"]
     assert parts["field"]["checks"]["field"]["loss_max_rel_diff"] <= chip_smoke.MULTI_LOSS_RTOL
+    # the start-up path: one fresh process with the warm-up, its timeline
+    # from interpreter start to the second register
+    cold = next(x for x in lines if x.get("phase") == "cold")
+    assert list(cold["runs"]) == ["b"]
+    b = cold["runs"]["b"]
+    assert b["precompile"] and not b["cold_build"] and b["device"] == "cpu"
+    labels = [label for label, _ in b["marks"]]
+    assert labels == ["imports (numpy, torch, the package)", "viewer", "mesh", "checkpoints",
+                      "engine", "reader", "precompile started", "heatmap", "frame 0 loaded",
+                      "first pose", "first defect cloud", "capture 2 start", "capture 2 end",
+                      "second register"]
+    times = [t for _, t in b["marks"]]
+    assert times == sorted(times) and b["time_to_first_pose_s"] == times[9]
+    assert 0 < b["time_to_first_pose_s"] < b["time_to_first_defect_cloud_s"]
+    assert b["process_wall_s"] > b["time_to_first_defect_cloud_s"]
+    assert list(b["precompile_record"]["seconds"]) == ["build", "register", "track", "capture"]
+    assert b["precompile_record"]["launches"] == {} and b["loop_k1_launches"] == 0
+    assert 0 <= b["warmup_beside_setup_s"] <= b["warmup_s"] and b["register_waited_s"] >= 0
+    assert set(b["capture_s"]) == {"2"} and b["second_register_s"] > 0
     assert kernels[0]["launches"] == kernels[1]["launches"] == 0
 
 
@@ -299,3 +319,35 @@ def test_rehearsal_refinement_matches_jax(down_sample):
         assert jax_res.fitness < chip_smoke.CAPTURE_MIN_FITNESS
     else:
         assert min(jax_res.fitness, port_res.fitness) >= chip_smoke.CAPTURE_MIN_FITNESS
+
+
+def test_cold_phase_fails_when_the_warm_up_changes_a_result(monkeypatch, capsys):
+    """phase cold holds the run with the warm-up (b) to the run without it
+    (a) bit for bit: (b) here one ulp off in one pose fails the phase, and
+    the script prints no result."""
+    sys.path.insert(0, REPO)
+    import numpy as np
+
+    import chip_smoke
+
+    arrays = {"poses": np.tile(np.eye(4), (6, 1, 1)), "icp_frames": np.array([0, 2, 4]),
+              "icp_tfs": np.tile(np.eye(4), (3, 1, 1)), "icp_fitness": np.ones(3),
+              "cloud_sizes": np.array([5, 5, 5]), "clouds": np.zeros((15, 3))}
+    run = {"precompile_record": {"seconds": dict.fromkeys(("build", "register", "track",
+                                                           "capture"), 0.1),
+                                 "launches": {"rasterize_zbuffer": 10, "ray_mesh_intersect": 1}},
+           "loop_k1_launches": 22, "loop_k2_launches": 3}
+
+    def cold_run(name, scene, flags, env, out_dir, small):
+        out = {k: v.copy() for k, v in arrays.items()}
+        if name == "b":
+            out["poses"][3, 0, 3] = np.nextafter(0.0, 1.0)
+        return dict(run), out, 1.0
+
+    monkeypatch.setattr(chip_smoke, "_cold_run", cold_run)
+    monkeypatch.setattr(chip_smoke, "_tool", lambda *_: ({}, 1.0))
+    cfg = chip_smoke._config(False)
+    with pytest.raises(RuntimeError, match="with and without the warm-up disagree"):
+        chip_smoke.phase_cold(torch.device("cuda"), cfg, "synth_box", small=False)
+    out = capsys.readouterr().out
+    assert '"a_vs_b_bit_equal": false' in out and '"ok"' not in out

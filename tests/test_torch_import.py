@@ -28,6 +28,8 @@ import convert_scene_to_bop_torch
 import run_object_field_torch
 import extract_field_mesh_torch
 import profile_torch_field
+import precompile_torch
+import measure_cold_start_torch
 run_bop_torch.main, convert_scene_to_bop_torch.main  # their imports run inside main
 bad = [n for n in sys.modules if n.split(".")[0] in {FORBIDDEN!r}]
 print("BAD", bad)
@@ -44,6 +46,7 @@ print("LIVE", all(m in sys.modules for m in ("sixdof_tpu_torch.io.bop_reader",
                                              "sixdof_tpu_torch.io.kinect_tools",
                                              "sixdof_tpu_torch.utils.logging_utils")))
 print("FIELD", "sixdof_tpu_torch.models.object_field" in sys.modules)
+print("STARTUP", callable(precompile_torch.main) and callable(measure_cold_start_torch.main))
 print("H5_MULTI", all(m in sys.modules for m in ("sixdof_tpu_torch.io.h5_dataset",
                                                  "sixdof_tpu_torch.models.pose_data",
                                                  "sixdof_tpu_torch.parallel.sharding")))
@@ -60,6 +63,7 @@ print("H5_MULTI", all(m in sys.modules for m in ("sixdof_tpu_torch.io.h5_dataset
     assert "TRAINER True" in out.stdout  # and the trainer, with the training tool
     assert "LIVE True" in out.stdout  # the BOP reader, the Kinect tools, with their tools
     assert "FIELD True" in out.stdout  # the neural object field, with its tools
+    assert "STARTUP True" in out.stdout  # the start-up tools
     assert "H5_MULTI True" in out.stdout  # the H5 path and the data axis
 
 

@@ -256,7 +256,8 @@ def test_parser_takes_the_jax_command_line():
             assert t[k] == j[k], (argv, k)
     precompile = next(a for a in trun.build_parser()._actions
                       if "--precompile" in a.option_strings)
-    assert "ignored" in precompile.help and precompile.default == 1
+    assert "warm up" in precompile.help and "join" in precompile.help \
+        and precompile.default == 1
 
 
 def test_cli_demo_runs(tmp_path):
@@ -347,7 +348,8 @@ def test_no_demo_loop_matches_jax(monkeypatch, tmp_path):
         else:
             state = trun.LoopState()
             trun.main(trun.build_parser().parse_args(
-                argv + ["--test_scene_dir", base, "--debug_dir", debug_dir, "--device", "cpu"]),
+                argv + ["--test_scene_dir", base, "--debug_dir", debug_dir, "--device", "cpu",
+                        "--precompile", "0"]),
                 refiner=tr, scorer=ts, state=state)
             captures = state.captures
             shown.append([p.points for p in state.intersection_pcds])
