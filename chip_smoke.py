@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Run the PyTorch/CUDA port's pose server, capture path, trainer, BOP
-campaign, live-camera loop, neural object field, H5 pose-pair path, its
-multi-device path (the data and the model axis) and its start-up path on
-one NVIDIA card and check them.
+"""Run the PyTorch/CUDA port's pose server, capture path, trainer, JPEG
+decoder, BOP campaign, live-camera loop, neural object field, H5 pose-pair
+path, its multi-device path (the data and the model axis) and its start-up
+path on one NVIDIA card and check them.
 
     python3 chip_smoke.py
 
@@ -10,9 +10,10 @@ Phases, one JSON line each; a phase that fails raises and the script exits
 non-zero without printing the final result:
 
   device   the card's name and power limit (torch and nvidia-smi)
-  build    both kernel sources and the PNG row-filter routine compile at
-           once (nvcc: sixdof_tpu_torch/csrc/raster_zbuffer.cu,
-           csrc/ray_mesh.cu; cc: csrc/png_unfilter.c)
+  build    both kernel sources, the PNG row-filter routine and the JPEG
+           decoder compile at once (nvcc: sixdof_tpu_torch/csrc/
+           raster_zbuffer.cu, csrc/ray_mesh.cu; cc: csrc/png_unfilter.c,
+           csrc/jpeg_decode.c)
   k1       raster kernel K1 against its plain PyTorch version on the card
            (zbuf bit-equal, tid equal on every pixel), on the register
            shapes (B=252 at 96x96, B=64 at 160x160), the track shapes (B=1
@@ -91,11 +92,21 @@ non-zero without printing the final result:
            a fresh model's (the refiner's must be lower); the trained nets
            written, loaded by the predictors (outputs bit-equal) and
            registering frame 0 (a finite pose)
+  jpeg     the JPEG decoder (cc: csrc/jpeg_decode.c) on the host: every
+           fixture of tests/data/jpeg (synth_box's frames as JPEG, one file
+           of each kind read, a 256x256 texture) decoded as cv2.imread and
+           as PIL's convert("RGB") decode it, each sha256 equal to the
+           manifest's; frame 0 (640x480) decoded 50 times as JPEG and as
+           PNG (median ms); an OBJ whose map_Kd is the JPEG texture loaded
+           (its texture's sha256 equal to the manifest's)
   bop      the BOP campaign: each 6-frame demo scene converted by
            tools/convert_scene_to_bop_torch.py and scored by
            tools/run_bop_torch.py at full width, on the full grid and at
            prune_to 64, plus synth_box with its model subdivided to 20,480
-           triangles (decimated by the tool); ADD-S held to
+           triangles (decimated by the tool) and synth_box_jpeg (its frames
+           swapped for the JPEG fixtures, synth_box's ceilings, the JAX
+           package's numbers on it from the manifest and frame 0's pose
+           beside the PNG scene's); ADD-S held to
            tools/parity_check.py's ceiling of each scene at both settings,
            rotation on the full grid; ADD, AUC, recall and t error beside
            PARITY_r5.json; K1 launches and seconds a run
@@ -1463,6 +1474,90 @@ def _small_engine(small):
                              functools.partial(estimater.FoundationPose, coarse_hw=(16, 16)))
 
 
+JPEG_FIXTURES = os.path.join(REPO, "tests", "data", "jpeg")
+
+
+def _digest(img):
+    import hashlib
+
+    return {"shape": list(img.shape), "sha256": hashlib.sha256(img.tobytes()).hexdigest()}
+
+
+def _median_ms(fn, n):
+    import numpy as np
+
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def phase_jpeg(small):
+    """The JPEG decoder (io/jpeg.py, csrc/jpeg_decode.c) on this host: every
+    fixture of tests/data/jpeg decoded by read_jpeg_color and read_jpeg_rgb,
+    each digest equal to the manifest's (cv2.imread's and PIL's convert's
+    on the machine that wrote them); synth_box frame 0 (640x480) decoded
+    50 times as JPEG and as PNG (median ms each); and an OBJ written here
+    whose map_Kd is the JPEG texture loaded, its texture's digest equal to
+    the manifest's."""
+    import glob
+    import shutil
+
+    from sixdof_tpu_torch.io.jpeg import read_jpeg_color, read_jpeg_rgb
+    from sixdof_tpu_torch.io.mesh_io import load_obj
+    from sixdof_tpu_torch.io.png import read_png_color
+
+    with open(os.path.join(JPEG_FIXTURES, "MANIFEST.json")) as f:
+        manifest = json.load(f)
+    files, wrong = {}, []
+    for rel, entry in sorted(manifest["files"].items()):
+        path = os.path.join(JPEG_FIXTURES, rel)
+        got = {"cv2": _digest(read_jpeg_color(path)), "pil": _digest(read_jpeg_rgb(path))}
+        files[rel] = {k: got[k] == entry[k] for k in got}
+        wrong += [f"{rel} ({k})" for k, same in files[rel].items() if not same]
+    n = 3 if small else 50
+    jpg = os.path.join(JPEG_FIXTURES, "rgb", "000000.jpg")
+    png = sorted(glob.glob(os.path.join(REPO, "demo_data", "synth_box", "rgb", "*.png")))[0]
+    frame = dict(shape=list(read_jpeg_color(jpg).shape), jpeg_bytes=os.path.getsize(jpg),
+                 png_bytes=os.path.getsize(png),
+                 jpeg_ms=_median_ms(lambda: read_jpeg_color(jpg), n),
+                 png_ms=_median_ms(lambda: read_png_color(png), n), calls=n)
+    out = os.path.join(REPO, "build", "chip_smoke", "jpeg")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    shutil.copy(os.path.join(JPEG_FIXTURES, "texture.jpg"), out)
+    with open(os.path.join(out, "quad.mtl"), "w") as f:
+        f.write("newmtl material_0\nmap_Kd texture.jpg\n")
+    with open(os.path.join(out, "quad.obj"), "w") as f:
+        f.write("mtllib quad.mtl\nusemtl material_0\n"
+                "v 0 0 0\nv 1 0 0\nv 1 1 0\nv 0 1 0\nvt 0 0\nvt 1 0\nvt 1 1\nvt 0 1\n"
+                "f 1/1 2/2 3/3\nf 1/1 3/3 4/4\n")
+    mesh = load_obj(os.path.join(out, "quad.obj"))
+    texture_equal = mesh.texture is not None and \
+        _digest(mesh.texture) == manifest["files"]["texture.jpg"]["pil"]
+    res = dict(fixtures=len(files), files=files, frame=frame, texture_equal=texture_equal,
+               written_by={"cv2": manifest["cv2"], "pillow": manifest["pillow"]})
+    emit({"phase": "jpeg", **res})
+    if wrong or not texture_equal:
+        raise RuntimeError(f"the JPEG decoder disagrees with the manifest: {wrong}, texture "
+                           f"{'equal' if texture_equal else 'differs'}")
+    return res
+
+
+def _jpeg_scene(bop_scene):
+    """The converted synth_box with rgb/ holding the fixtures' JPEG frames
+    (cv2 quality 95, 4:2:0) in place of its PNGs."""
+    import glob
+    import shutil
+
+    for png in glob.glob(os.path.join(bop_scene, "rgb", "*.png")):
+        os.remove(png)
+    for jpg in sorted(glob.glob(os.path.join(JPEG_FIXTURES, "rgb", "*.jpg"))):
+        shutil.copy(jpg, os.path.join(bop_scene, "rgb"))
+
+
 def phase_bop(device, small, refiner, scorer):
     """The BOP path: each 6-frame demo scene converted by
     tools/convert_scene_to_bop_torch.py, then tools/run_bop_torch.py's main
@@ -1471,8 +1566,11 @@ def phase_bop(device, small, refiner, scorer):
     for every iteration (prune_to 0, tools/parity_check.py's setting, for
     which the ceilings were set) and at the tool's default prune_to 64; one
     more scene, synth_box with its model subdivided to 20,480 triangles,
-    which the tool decimates to 5000.  ADD-S is held to each scene's
-    ceiling at both settings, the rotation error on the full grid (pruned
+    which the tool decimates to 5000; and synth_box_jpeg, synth_box with its
+    frames swapped for the JPEG fixtures (read through io/jpeg.py), beside
+    the JAX package's numbers on the same scene (tests/data/jpeg's
+    manifest) and the PNG scene's frame-0 pose.  ADD-S is held to each
+    scene's ceiling at both settings, the rotation error on the full grid (pruned
     to 64 after two coarse iterations, the cascade keeps the 180-degree
     flip of the symmetric clutter object on synth_clutter and its sensor
     twin, as the JAX package does, and on synth_occl the prune cuts where
@@ -1484,6 +1582,8 @@ def phase_bop(device, small, refiner, scorer):
     (tools/bf16_prune_sensitivity.py --frame0_from replays the JAX package's
     campaign from it)."""
     import shutil
+
+    import numpy as np
 
     from sixdof_tpu_torch.io.mesh_io import load_mesh, save_mesh
     from sixdof_tpu_torch.kernels.raster import rasterize_zbuffer
@@ -1497,12 +1597,16 @@ def phase_bop(device, small, refiner, scorer):
     with open(os.path.join(REPO, "PARITY_r5.json")) as f:
         parity = json.load(f)["scenes"]
     runs = [(s, s) for s in (["synth_box"] if small else BOP_SCENES)]
-    runs.append(("synth_box_20480", "synth_box"))
+    runs += [("synth_box_20480", "synth_box"), ("synth_box_jpeg", "synth_box")]
     kw = dict(frames=2, max_hypotheses=8, shorter_side=120) if small else {}
-    results, launches, breaches = [], 0, []
+    with open(os.path.join(JPEG_FIXTURES, "MANIFEST.json")) as f:
+        jax_jpeg = json.load(f).get("jax_bop", {})
+    results, launches, breaches, frame0 = [], 0, [], {}
     for name, scene in runs:
         bop_scene = convert_scene_to_bop_torch.main(os.path.join(REPO, "demo_data", scene),
                                                     os.path.join(root, name), obj_id=1)
+        if name.endswith("jpeg"):
+            _jpeg_scene(bop_scene)
         triangles = None
         if name.endswith("20480"):
             model = os.path.join(root, name, "models", "obj_000001.ply")
@@ -1530,6 +1634,14 @@ def phase_bop(device, small, refiner, scorer):
                                                           "adds_auc_0.1d", "rot_err_deg_mean",
                                                           "t_err_m_mean")},
                        ceilings=gated, frame0_pose=poses[0].tolist() if poses else None)
+            frame0[name, prune_to] = poses[0] if poses else np.full((4, 4), np.nan)
+            if name.endswith("jpeg"):
+                png_pose = frame0[scene, prune_to]
+                res.update(jax_jpeg_scene=jax_jpeg.get(str(prune_to)),
+                           png_frame0_pose=png_pose.tolist(),
+                           vs_png_frame0_rot_deg=_rot_deg(poses[0][:3, :3], png_pose[:3, :3]),
+                           vs_png_frame0_trans_m=float(np.linalg.norm(poses[0][:3, 3]
+                                                                      - png_pose[:3, 3])))
             emit({"phase": "bop", **res})
             results.append(res)
             breaches += [f"{name} (prune_to {prune_to}): {k}={out[k]:.4g} > {c}"
@@ -2569,7 +2681,7 @@ def run(device="cuda", small=False):
     import torch
 
     from sixdof_tpu_torch.device import resolve_device
-    from sixdof_tpu_torch.io import png
+    from sixdof_tpu_torch.io import jpeg, png
     from sixdof_tpu_torch.io.mesh_io import decimate_mesh, load_mesh
     from sixdof_tpu_torch.io.readers import DataReader
     from sixdof_tpu_torch.kernels import raster, raytrace
@@ -2589,7 +2701,7 @@ def run(device="cuda", small=False):
         emit({"phase": "device", "name": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count(), "torch": torch.__version__,
               "cuda": torch.version.cuda})
-        libraries = (raster.LIBRARY, raytrace.LIBRARY, png.LIBRARY)
+        libraries = (raster.LIBRARY, raytrace.LIBRARY, png.LIBRARY, jpeg.LIBRARY)
         seconds = build_all(libraries)
         emit({"phase": "build", "seconds": seconds,
               "libraries": {lib.name: {"library": os.path.relpath(lib.info["library"], REPO),
@@ -2663,7 +2775,10 @@ def run(device="cuda", small=False):
     # the trainer: its batches through K1 at the trainer's shapes, textured
     # meshes, training from scratch and from the bundled weights
     train = phase_train(dev, cfg, scene, small)
-    # the BOP campaign on every 6-frame demo scene, and the live-camera loop
+    # the JPEG decoder against its fixtures, the BOP campaign on every
+    # 6-frame demo scene (and on synth_box's frames as JPEG), and the
+    # live-camera loop
+    phase_jpeg(small)
     bop = phase_bop(dev, small, refiner, scorer)
     live = phase_live(dev, cfg, scene, small, refiner, scorer)
     # the neural object field: a fit, its mesh, and a register on that mesh

@@ -3,7 +3,7 @@
 Port of `sixdof_tpu/io/bop_reader.py`.  One scene of a BOP dataset:
 
   <scene_dir>/
-    rgb/000000.png            (.jpg frames are listed, and raise when read)
+    rgb/000000.png            (or .jpg, as BOP's train_pbr splits store them)
     depth/000000.png          (uint16; metres = value * depth_scale / 1000)
     mask_visib/000000_000000.png   (per frame and ground-truth instance)
     mask/000000_000000.png         (the amodal mask, optional)
@@ -19,8 +19,9 @@ Port of `sixdof_tpu/io/bop_reader.py`.  One scene of a BOP dataset:
 
 Everything is converted at the boundary to the pipeline's conventions, as
 `DataReader` gives them: metres, the OpenCV camera frame, (4,4) float
-poses.  PNGs decode through `io/png.py`, resizes are OpenCV's
-INTER_NEAREST (`io/readers.py::resize_nearest`); nothing here decodes JPEG.
+poses.  PNGs decode through `io/png.py` and JPEGs through `io/jpeg.py`,
+both as ``cv2.imread`` does; resizes are OpenCV's INTER_NEAREST
+(`io/readers.py::resize_nearest`).
 """
 from __future__ import annotations
 
@@ -32,6 +33,7 @@ import os
 import numpy as np
 
 from ..ops.geometry import symmetry_tfs_from_info
+from .jpeg import read_jpeg_color
 from .mesh_io import load_mesh
 from .png import read_png, read_png_color
 from .readers import resize_nearest
@@ -40,8 +42,7 @@ from .readers import resize_nearest
 def _read_frame(path):
     """A colour frame as (H,W,3) uint8 BGR (``cv2.imread(path)``)."""
     if os.path.splitext(path)[1].lower() in (".jpg", ".jpeg"):
-        raise ValueError(f"{path}: a JPEG frame; the port decodes PNG frames only "
-                         "(convert the scene's rgb/ to PNG)")
+        return read_jpeg_color(path)
     return read_png_color(path)
 
 

@@ -2,9 +2,9 @@
 
 Port of `sixdof_tpu/io/mesh_io.py` (the loaders and containers the pose and
 capture paths use, and the OBJ and PLY writers), numpy only.  A textured
-OBJ's `map_Kd` image is read and written as PNG through `io/png.py`; a
-texture in any other format raises, since dropping it would change the
-rendered colours.
+OBJ's `map_Kd` image is read as PNG (`io/png.py`) or JPEG (`io/jpeg.py`)
+and written as PNG; a texture in any other format raises, since dropping
+it would change the rendered colours.
 """
 from __future__ import annotations
 
@@ -188,18 +188,21 @@ class TriMesh:
 
 def _read_texture(path):
     """A `map_Kd` image as (H,W,3) uint8 RGB, as PIL's ``convert("RGB")``
-    gives it.  Only PNG decodes here: grey is replicated, alpha and palette
+    gives it, told apart by its first bytes.  A JPEG decodes through
+    `io/jpeg.py`; of a PNG, grey is replicated, alpha and palette
     transparency dropped, 16-bit grey clipped to 255 and other 16-bit
     samples shifted to their high byte; any other format raises rather
     than rendering the mesh without its texture."""
+    from .jpeg import read_jpeg_rgb
     from .png import read_png
 
     with open(path, "rb") as f:
         head = f.read(8)
+    if head[:3] == b"\xff\xd8\xff":
+        return read_jpeg_rgb(path)
     if head != b"\x89PNG\r\n\x1a\n":
-        kind = "JPEG" if head[:3] == b"\xff\xd8\xff" else f"{os.path.splitext(path)[1]!r}"
-        raise ValueError(f"{path}: the texture is a {kind} image; only PNG textures "
-                         "are read (convert it to PNG)")
+        raise ValueError(f"{path}: the texture is a {os.path.splitext(path)[1]!r} image; "
+                         "PNG and JPEG textures are read (convert it to one of them)")
     img = read_png(path)
     if img.dtype == np.uint16:
         img = np.minimum(img, 255) if img.ndim == 2 else img >> 8

@@ -3,13 +3,13 @@ and ``cv2.imread(path, cv2.IMREAD_COLOR)``, and a minimal writer of 8-bit
 greyscale, RGB and RGBA and 16-bit greyscale images (what ``cv2.imwrite``
 writes for a mask, an overlay, a debug drawing or a depth frame).
 
-Decodes every non-interlaced PNG: greyscale at 1, 2, 4, 8 and 16 bits (the
+Decodes every PNG: greyscale at 1, 2, 4, 8 and 16 bits (the
 low depths scaled to 0..255), RGB, RGBA and grey+alpha at 8 and 16 bits,
 and palette images at 1-8 bits, with a `tRNS` chunk turning palette and RGB
 images into BGRA (a grey image's `tRNS` is ignored), as OpenCV's libpng
-reader does.  The row filters are undone in C (`csrc/png_unfilter.c`, built
-with the system C compiler at first use; without one, decoding raises).
-Adam7-interlaced files raise.  `read_png` returns what OpenCV returns for
+reader does, Adam7-interlaced or not.  The row filters are undone in C
+(`csrc/png_unfilter.c`, built with the system C compiler at first use;
+without one, decoding raises).  `read_png` returns what OpenCV returns for
 ``IMREAD_UNCHANGED``: (H,W) grey, (H,W,3) BGR, or (H,W,4) BGRA, uint8 or
 uint16.
 
@@ -92,6 +92,29 @@ def _samples(rows, width, bit_depth, ch):
     return (bits * weights).sum(axis=-1, dtype=np.uint8)[:, :width, None]
 
 
+# the seven Adam7 passes: first column and row, column and row steps
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+          (0, 1, 1, 2))
+
+
+def _deinterlace(raw, width, height, bit_depth, ch, bpp):
+    """The (H, W, ch) samples of Adam7-interlaced image data: each pass a
+    small image of its own (its rows filtered apart from the other passes'),
+    scattered to its pixels of the whole."""
+    img = np.zeros((height, width, ch), np.uint16 if bit_depth == 16 else np.uint8)
+    pos = 0
+    for x0, y0, dx, dy in _ADAM7:
+        pw, ph = -(-(width - x0) // dx), -(-(height - y0) // dy)
+        if pw <= 0 or ph <= 0:
+            continue  # an empty pass has no rows, not even filter bytes
+        stride = (pw * ch * bit_depth + 7) // 8
+        size = ph * (stride + 1)
+        img[y0::dy, x0::dx] = _samples(_unfilter(raw[pos:pos + size], ph, stride, bpp), pw,
+                                       bit_depth, ch)
+        pos += size
+    return img
+
+
 def _decode(name, data):
     """The samples of the PNG bytes @data in the file's channel order, a
     palette expanded to RGB (RGBA with a `tRNS` chunk); returns (image
@@ -101,13 +124,14 @@ def _decode(name, data):
     if bit_depth not in _DEPTHS.get(color_type, ()):
         raise ValueError(f"{name}: invalid PNG colour type {color_type} at bit depth "
                          f"{bit_depth}")
-    if interlace:
-        raise NotImplementedError(f"{name}: an Adam7-interlaced PNG; only non-interlaced "
-                                  "PNGs are read")
     ch = _CHANNELS[color_type]
-    stride = (width * ch * bit_depth + 7) // 8
-    img = _samples(_unfilter(zlib.decompress(idat), height, stride,
-                             max(1, ch * bit_depth // 8)), width, bit_depth, ch)
+    bpp = max(1, ch * bit_depth // 8)
+    raw = zlib.decompress(idat)
+    if interlace:
+        img = _deinterlace(raw, width, height, bit_depth, ch, bpp)
+    else:
+        stride = (width * ch * bit_depth + 7) // 8
+        img = _samples(_unfilter(raw, height, stride, bpp), width, bit_depth, ch)
     if color_type == 3:  # palette -> RGB(A), entries past PLTE's end black
         if plte is None:
             raise ValueError(f"{name}: a palette PNG without a PLTE chunk")

@@ -386,11 +386,21 @@ class _ReaderCommon:
         self.target_mesh.compute_vertex_normals()
         self.target = load_point_cloud(f"{self.base_dir}/mesh/model.ply")
 
+    def get_initial_pose(self):
+        return np.eye(4)
+
     @staticmethod
     def scale_translation_to_millimeters(pose):
         out = pose.copy()
         out[:3, -1] *= 1000
         return out
+
+    @staticmethod
+    def build_pinhole_intrinsics(width, height, K):
+        """The camera of intrinsic matrix @K (nested lists or an array) at
+        @width x @height."""
+        return PinholeCameraIntrinsic.from_params(width, height, K[0][0], K[1][1], K[0][2],
+                                                  K[1][2])
 
     def get_heatmap(self, color_image):
         """heatmap/0002.npy normalised to [0,1], resized to the colour frame's
@@ -426,10 +436,16 @@ class _ReaderCommon:
 
 
 class DataReader(_ReaderCommon):
-    """Offline demo-data replay (reference datareader.py:508-792)."""
+    """Offline demo-data replay (reference datareader.py:508-792).
 
-    def __init__(self, base_dir, shorter_side=None, zfar=np.inf, arguments=None):
+    @downscale is kept until the frame sizes are read, then replaced by
+    shorter_side / the colour frame's shorter side (@shorter_side: by
+    default the least of the colour and depth frames' sides), as the JAX
+    reader does."""
+
+    def __init__(self, base_dir, downscale=1, shorter_side=None, zfar=np.inf, arguments=None):
         self.base_dir = base_dir
+        self.downscale = downscale
         self.zfar = zfar
         # frames decoded ahead on a thread (_prefetched): kind -> {i: frame},
         # kind -> {i: decoding thread}, kind -> the frame served last
@@ -437,23 +453,20 @@ class DataReader(_ReaderCommon):
         self._pf_inflight = {"color": {}, "depth": {}}
         self._pf_served = {"color": None, "depth": None}
         self._pf_lock = threading.Lock()
-        self.parameters = self.update_config(arguments)
         self.color_files = sorted(glob.glob(f"{self.base_dir}/rgb/*.png"))
         if not self.color_files:
             raise FileNotFoundError(f"no colour frames under {self.base_dir}/rgb")
-        with open(f"{self.base_dir}/configs/camera_intrinsics.json", "r") as f:
-            intr = json.load(f)["color"]
-        self.color_K = np.array([[intr["fx"], 0, intr["cx"]], [0, intr["fy"], intr["cy"]],
-                                 [0, 0, 1]], dtype=np.float64)
-        # the defect rays use the colour camera at its native size
-        self.color_pinhole = PinholeCameraIntrinsic.from_params(
-            intr["width"], intr["height"], intr["fx"], intr["fy"], intr["cx"], intr["cy"])
+        self.file_id = 0
+        self.parameters = self.update_config(arguments)
+        self.get_intrinsics()
         self.get_extrinsics()
+        self.color_K = np.array(self.color_K)
         self.id_strs = [os.path.basename(f).replace(".png", "") for f in self.color_files]
+        # the frames' own sizes replace the intrinsics file's
         self.color_H, self.color_W = read_png(self.color_files[0]).shape[:2]
-        depth_H, depth_W = read_png(self._depth_path(self.color_files[0])).shape[:2]
+        self.depth_H, self.depth_W = read_png(self._depth_path(self.color_files[0])).shape[:2]
         if shorter_side is None:
-            shorter_side = min(self.color_H, self.color_W, depth_H, depth_W)
+            shorter_side = min(self.color_H, self.color_W, self.depth_H, self.depth_W)
         self.downscale = shorter_side / min(self.color_H, self.color_W)
         self.color_H = int(self.color_H * self.downscale)
         self.color_W = int(self.color_W * self.downscale)
@@ -464,6 +477,20 @@ class DataReader(_ReaderCommon):
 
     def __len__(self):
         return len(self.color_files)
+
+    def get_intrinsics(self):
+        """configs/camera_intrinsics.json: `depth_K` and `color_K` (nested
+        lists), the native sizes, and the depth and colour cameras at them
+        (`depth_pinhole`, `color_pinhole`; the defect rays use the latter)."""
+        with open(f"{self.base_dir}/configs/camera_intrinsics.json", "r") as f:
+            intr = json.load(f)
+        K = {cam: [[intr[cam]["fx"], 0, intr[cam]["cx"]], [0, intr[cam]["fy"], intr[cam]["cy"]],
+                   [0, 0, 1]] for cam in ("depth", "color")}
+        self.depth_K, self.color_K = K["depth"], K["color"]
+        self.depth_H, self.depth_W = intr["depth"]["height"], intr["depth"]["width"]
+        self.color_H, self.color_W = intr["color"]["height"], intr["color"]["width"]
+        self.depth_pinhole = self.build_pinhole_intrinsics(self.depth_W, self.depth_H, self.depth_K)
+        self.color_pinhole = self.build_pinhole_intrinsics(self.color_W, self.color_H, self.color_K)
 
     def get_gt_pose(self, i=0):
         if i >= len(self.gt_pose_files):
@@ -571,15 +598,15 @@ class KinectReader(_ReaderCommon):
     the colour, depth and point cloud all arrive; the getters serve the last
     frame.  @capture_background: capture the empty scene's cloud at start
     (after a countdown) and save it as background/box.ply, else read that
-    file."""
+    file.  @downscale is replaced as in `DataReader`."""
 
     COLOR_RESOLUTIONS = {1: (1280, 720), 2: (1920, 1080), 3: (2560, 1440),
                          4: (2048, 1536), 5: (3840, 2160), 6: (4096, 3072)}
     DEPTH_MODES = {1: (320, 288), 2: (640, 576), 3: (512, 512), 4: (1024, 1024),
                    5: (1024, 1024)}
 
-    def __init__(self, base_dir, capture_background=False, shorter_side=None, zfar=np.inf,
-                 arguments=None):
+    def __init__(self, base_dir, capture_background=False, downscale=1, shorter_side=None,
+                 zfar=np.inf, arguments=None):
         try:
             import pykinect_azure as pykinect
         except ImportError as e:
@@ -588,8 +615,11 @@ class KinectReader(_ReaderCommon):
         self._pykinect = pykinect
         pykinect.initialize_libraries()
         self.base_dir = base_dir
+        self.downscale = downscale
         self.zfar = zfar
         self.file_id = 0
+        self.color_files = []  # a live stream has no files
+        self.id_strs = []
         self.parameters = self.update_config(arguments)
         self.device, self.device_config = self.initialize()
         self.get_intrinsics()
@@ -606,6 +636,7 @@ class KinectReader(_ReaderCommon):
         self.last_color = None
         self.last_depth = None
         self.last_points = None
+        self.capture_background = capture_background
         if capture_background:
             self.background = self.capture_new_background()
         else:
@@ -651,7 +682,8 @@ class KinectReader(_ReaderCommon):
         self.color_W, self.color_H = cw, ch
         self.depth_W, self.depth_H = dw, dh
         # the defect rays use the colour camera at its native size
-        self.color_pinhole = PinholeCameraIntrinsic.from_params(cw, ch, cp.fx, cp.fy, cp.cx, cp.cy)
+        self.depth_pinhole = self.build_pinhole_intrinsics(dw, dh, self.depth_K)
+        self.color_pinhole = self.build_pinhole_intrinsics(cw, ch, self.color_K)
 
     def get_color(self, i=None):
         """The last frame as (H,W,3) uint8 RGB, or None before the first."""

@@ -1,7 +1,8 @@
 """Logging and timing helpers.
 
-Port of `sixdof_tpu/utils/logging_utils.py::{set_logging_format, timeit}`
-(the seeding helper is `utils/profiling.py::set_seed`).
+Port of `sixdof_tpu/utils/logging_utils.py::{set_logging_format, timeit,
+rle_to_mask, make_yaml_dumpable}` (the seeding helper is
+`utils/profiling.py::set_seed`).
 """
 from __future__ import annotations
 
@@ -9,6 +10,8 @@ import functools
 import importlib
 import logging
 import time
+
+import numpy as np
 
 
 def set_logging_format(level=logging.INFO):
@@ -28,3 +31,33 @@ def timeit(func):
         return result
 
     return wrapper
+
+
+def rle_to_mask(rle: dict):
+    """An uncompressed RLE ({"size": [h, w], "counts": [...]}, column-major
+    runs starting with 0s, COCO's layout) as a (h, w) bool mask."""
+    h, w = rle["size"]
+    mask = np.empty(h * w, dtype=bool)
+    idx = 0
+    parity = False
+    for count in rle["counts"]:
+        mask[idx : idx + count] = parity
+        idx += count
+        parity ^= True
+    return mask.reshape(w, h).transpose()
+
+
+def make_yaml_dumpable(D):
+    """@D with numpy arrays as lists and numpy scalars as Python ints and
+    floats, through nested dicts, lists and tuples (tuples become lists)."""
+    if isinstance(D, np.ndarray):
+        return D.tolist()
+    if isinstance(D, dict):
+        return {k: make_yaml_dumpable(v) for k, v in D.items()}
+    if isinstance(D, (list, tuple)):
+        return [make_yaml_dumpable(v) for v in D]
+    if isinstance(D, np.integer):
+        return int(D)
+    if isinstance(D, np.floating):
+        return float(D)
+    return D

@@ -118,10 +118,22 @@ def test_reader_matches_jax_on_fixture(tmp_path, shorter_side, ob_id):
 
 
 def test_reader_raises_on_jpeg_frames(tmp_path):
+    """JPEG frames, once refused, now read as the JAX reader's cv2.imread
+    reads them: the fixture's frames re-saved as JPEG (frame 0 at cv2's
+    default quality, frame 1 by PIL at 4:4:4), every getter equal."""
     scene = _write_bop_scene(str(tmp_path))
-    os.rename(f"{scene}/rgb/000000.png", f"{scene}/rgb/000000.jpg")
-    with pytest.raises(ValueError, match="JPEG"):
-        TBop(scene)
+    for fid in (0, 1):
+        png_path = f"{scene}/rgb/{fid:06d}.png"
+        bgr = cv2.imread(png_path)
+        os.remove(png_path)
+        if fid == 0:
+            cv2.imwrite(f"{scene}/rgb/{fid:06d}.jpg", bgr)
+        else:
+            from PIL import Image
+
+            Image.fromarray(bgr[..., ::-1]).save(f"{scene}/rgb/{fid:06d}.jpg", subsampling=0)
+    _assert_readers_equal(TBop(scene, shorter_side=45), JBop(scene, shorter_side=45))
+    np.testing.assert_array_equal(TBop(scene).get_color(1), JBop(scene).get_color(1))
 
 
 @pytest.fixture(scope="module")

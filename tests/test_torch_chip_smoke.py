@@ -2,7 +2,8 @@
 and K2 through their plain versions, the pose server twice on the bundled
 weights, the accuracy phase, the capture path and the run loop twice, the
 loop at --debug 2 and in viewer mode, the point-click path on a crust, the
---icp registration, the trainer, the BOP campaign, the live-camera loop
+--icp registration, the trainer, the JPEG decoder, the BOP campaign (on a
+JPEG scene too), the live-camera loop
 against a stand-in Kinect, the neural object field, the H5 path and the
 multi-device path on gloo ranks of the CPU, its model axis too, and the
 start-up timeline in a fresh process) and the kernels line has the keys
@@ -36,8 +37,8 @@ def test_chip_smoke_rehearsal_on_cpu(capsys):
     assert phases.index("pose") < phases.index("accuracy") < phases.index("capture") \
         < phases.index("debug") < phases.index("viewer") < phases.index("point_click") \
         < phases.index("icp_global") < phases.index("train_k1") < phases.index("train") \
-        < phases.index("bop") < phases.index("live") < phases.index("field") \
-        < phases.index("h5") < phases.index("multi") < phases.index("cold")
+        < phases.index("jpeg") < phases.index("bop") < phases.index("live") \
+        < phases.index("field") < phases.index("h5") < phases.index("multi") < phases.index("cold")
     assert lines[-1] == {"kernels": kernels}
     assert [k["name"] for k in kernels] == ["raster_zbuffer", "ray_mesh_intersect"]
     for k in kernels:
@@ -126,11 +127,23 @@ def test_chip_smoke_rehearsal_on_cpu(capsys):
     assert training["k1_launches"] == 0  # the CPU renders through the plain raster
     assert training["checkpoint"] == {"outputs_bit_equal": True, "register_pose_finite": True}
     assert set(training["first_loss"]["refiner"]) == {"bundled", "from_scratch"}
+    # the JPEG decoder: every fixture's digests as the manifest's, frame 0
+    # timed as JPEG and PNG, the JPEG texture of an OBJ
+    jpg = next(x for x in lines if x.get("phase") == "jpeg")
+    assert jpg["fixtures"] == len(jpg["files"]) == 19 and jpg["texture_equal"]
+    assert all(v == {"cv2": True, "pil": True} for v in jpg["files"].values())
+    assert jpg["frame"]["shape"] == [480, 640, 3] and jpg["frame"]["calls"] == 3
+    assert jpg["frame"]["jpeg_ms"] > 0 and jpg["frame"]["png_ms"] > 0
     # the BOP campaign: synth_box converted and run, then with its model
-    # subdivided to 20,480 triangles (decimated by the tool)
+    # subdivided to 20,480 triangles (decimated by the tool), then with its
+    # frames as JPEG beside the JAX package's numbers on them
     bop = [x for x in lines if x.get("phase") == "bop"]
     assert [(x["name"], x["prune_to"]) for x in bop] == [
-        ("synth_box", 0), ("synth_box", 4), ("synth_box_20480", 0), ("synth_box_20480", 4)]
+        ("synth_box", 0), ("synth_box", 4), ("synth_box_20480", 0), ("synth_box_20480", 4),
+        ("synth_box_jpeg", 0), ("synth_box_jpeg", 4)]
+    assert bop[4]["jax_jpeg_scene"]["frames"] == 6 and bop[5]["jax_jpeg_scene"] is None
+    assert bop[4]["png_frame0_pose"] == bop[0]["frame0_pose"]
+    assert bop[4]["vs_png_frame0_rot_deg"] >= 0 and bop[5]["vs_png_frame0_trans_m"] >= 0
     assert bop[2]["model_triangles"] == 20480
     assert set(bop[0]["ceilings"]) == {"adds_mean_m", "rot_err_deg_mean"}
     assert set(bop[1]["ceilings"]) == {"adds_mean_m"}

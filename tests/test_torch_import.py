@@ -47,6 +47,7 @@ print("LIVE", all(m in sys.modules for m in ("sixdof_tpu_torch.io.bop_reader",
                                              "sixdof_tpu_torch.utils.logging_utils")))
 print("FIELD", "sixdof_tpu_torch.models.object_field" in sys.modules)
 print("STARTUP", callable(precompile_torch.main) and callable(measure_cold_start_torch.main))
+print("JPEG", "sixdof_tpu_torch.io.jpeg" in sys.modules)
 print("H5_MULTI", all(m in sys.modules for m in ("sixdof_tpu_torch.io.h5_dataset",
                                                  "sixdof_tpu_torch.models.pose_data",
                                                  "sixdof_tpu_torch.parallel.sharding")))
@@ -65,6 +66,53 @@ print("H5_MULTI", all(m in sys.modules for m in ("sixdof_tpu_torch.io.h5_dataset
     assert "FIELD True" in out.stdout  # the neural object field, with its tools
     assert "STARTUP True" in out.stdout  # the start-up tools
     assert "H5_MULTI True" in out.stdout  # the H5 path and the data axis
+    assert "JPEG True" in out.stdout  # the JPEG decoder
+
+
+def test_jpeg_path_runs_without_jax_or_host_libraries(tmp_path):
+    """The JPEG decoder on every fixture (its digests equal the manifest's),
+    the BOP reader on a converted synth_box whose frames are the JPEG
+    fixtures, the offline reader and an OBJ with the JPEG texture load no
+    forbidden module."""
+    code = f"""
+import glob, hashlib, json, os, shutil, sys
+import torch
+torch.set_num_threads(1)
+sys.path.insert(0, "tools")
+import convert_scene_to_bop_torch
+from sixdof_tpu_torch.io.bop_reader import BopSceneReader
+from sixdof_tpu_torch.io.jpeg import read_jpeg_color, read_jpeg_rgb
+from sixdof_tpu_torch.io.mesh_io import load_obj
+from sixdof_tpu_torch.io.readers import DataReader
+fixtures = "tests/data/jpeg"
+manifest = json.load(open(os.path.join(fixtures, "MANIFEST.json")))
+sha = lambda img: hashlib.sha256(img.tobytes()).hexdigest()
+same = [sha(read_jpeg_color(os.path.join(fixtures, rel))) == e["cv2"]["sha256"]
+        and sha(read_jpeg_rgb(os.path.join(fixtures, rel))) == e["pil"]["sha256"]
+        for rel, e in manifest["files"].items()]
+scene = convert_scene_to_bop_torch.main("demo_data/synth_box", {str(tmp_path)!r})
+for png in glob.glob(os.path.join(scene, "rgb", "*.png")):
+    os.remove(png)
+for jpg in glob.glob(os.path.join(fixtures, "rgb", "*.jpg")):
+    shutil.copy(jpg, os.path.join(scene, "rgb"))
+frame = BopSceneReader(scene, shorter_side=120).get_color(0)
+DataReader("demo_data/synth_box", 1, 120).get_color(0)
+shutil.copy(os.path.join(fixtures, "texture.jpg"), {str(tmp_path)!r})
+open(os.path.join({str(tmp_path)!r}, "q.mtl"), "w").write("newmtl m\\nmap_Kd texture.jpg\\n")
+open(os.path.join({str(tmp_path)!r}, "q.obj"), "w").write(
+    "mtllib q.mtl\\nv 0 0 0\\nv 1 0 0\\nv 0 1 0\\nvt 0 0\\nvt 1 0\\nvt 0 1\\nf 1/1 2/2 3/3\\n")
+tex = load_obj(os.path.join({str(tmp_path)!r}, "q.obj")).texture
+print("FIXTURES", len(same), all(same))
+print("FRAME", frame.shape)
+print("TEXTURE", sha(tex) == manifest["files"]["texture.jpg"]["pil"]["sha256"])
+print("BAD", [n for n in sys.modules if n.split(".")[0] in {FORBIDDEN!r}])
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "FIXTURES 19 True" in out.stdout and "FRAME (120, 160, 3)" in out.stdout, out.stdout
+    assert "TEXTURE True" in out.stdout and "BAD []" in out.stdout, out.stdout
 
 
 def test_bop_tools_run_without_jax_or_host_libraries(tmp_path):

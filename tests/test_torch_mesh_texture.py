@@ -92,13 +92,16 @@ def test_grey_and_rgba_textures_read_as_rgb(tmp_path, mode):
 
 
 def test_jpeg_texture_raises(tmp_path):
+    """A JPEG texture, once refused, now reads as the JAX loader's PIL
+    convert("RGB") reads it."""
     v, f, uv, tex = _textured(seed=3)
     jm.save_obj(str(tmp_path / "box.obj"), jm.TriMesh(v, f, uv=uv, texture=tex))
     Image.fromarray(tex).save(tmp_path / "box_tex.jpg", format="JPEG")
     (tmp_path / "box.mtl").write_text("newmtl material_0\nmap_Kd box_tex.jpg\n")
-    assert jm.load_obj(str(tmp_path / "box.obj")).texture is not None  # PIL reads it
-    with pytest.raises(ValueError, match="JPEG"):
-        tm.load_obj(str(tmp_path / "box.obj"))
+    ref = jm.load_obj(str(tmp_path / "box.obj"))  # PIL's convert("RGB")
+    got = tm.load_obj(str(tmp_path / "box.obj"))
+    np.testing.assert_array_equal(got.texture, ref.texture)
+    np.testing.assert_array_equal(got.uv, ref.uv)
 
 
 def test_save_ply_mesh_and_cloud_match_jax(tmp_path):

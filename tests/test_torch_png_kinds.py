@@ -123,10 +123,22 @@ def test_kind_decodes_as_opencv_and_pil(tmp_path, kind):
 
 
 def test_interlaced_png_raises_naming_adam7(tmp_path):
+    """An Adam7-interlaced PNG, once refused, now decodes as OpenCV reads it
+    (tests/test_torch_png_adam7.py holds every kind): a flat image, whose
+    passes hold the same rows whichever way they are interleaved."""
     path = str(tmp_path / "adam7.png")
-    _raw_png(path, np.zeros((4, 4, 1), int), 8, 0, interlace=1)
-    with pytest.raises(NotImplementedError, match="Adam7"):
-        png.read_png(path)
+    samples = np.full((4, 4, 1), 77)
+    samples[:, :2] = 200  # columns, not rows: the passes' rows differ in length
+    body = b""
+    for x0, y0, dx, dy in png._ADAM7:  # each pass's rows, filter type None
+        sub = samples[y0::dy, x0::dx, 0].astype(np.uint8)
+        body += b"".join(b"\x00" + row.tobytes() for row in sub if sub.shape[1])
+    ihdr = struct.pack(">IIBBBBB", 4, 4, 8, 0, 0, 0, 1)
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + _chunk(b"IHDR", ihdr)
+                + _chunk(b"IDAT", zlib.compress(body)) + _chunk(b"IEND", b""))
+    np.testing.assert_array_equal(png.read_png(path), cv2.imread(path, cv2.IMREAD_UNCHANGED))
+    np.testing.assert_array_equal(png.read_png(path), samples[..., 0])
 
 
 @pytest.mark.parametrize("shape", [(1, 1), (H, W), (480, 640)])
