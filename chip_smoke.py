@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port's pose server, capture path, trainer, JPEG
 decoder, BOP campaign, live-camera loop, neural object field, H5 pose-pair
-path, its multi-device path (the data and the model axis) and its start-up
-path on one NVIDIA card and check them.
+path, its multi-device path (the data and the model axis), its start-up
+path, and its scene synthesis, accuracy parity harness, register schedule
+sweep and FLOP accounting on one NVIDIA card and check them.
 
     python3 chip_smoke.py
 
@@ -169,10 +170,38 @@ non-zero without printing the final result:
            held to one arena; (a) and (b) bit-equal (poses, ICP transforms,
            defect clouds) with the same loop launches, and (b)'s warm-up
            launching K1 and K2 (counted apart from the loop's)
+  scene    the scene generator (tools/make_demo_scene_torch.py) through K1
+           at full frame (B=1, 640x480; 2 launches a frame): the six
+           committed scenes regenerated (synth_box, synth_clutter,
+           synth_occl, the two sensor scenes: 6 frames; synth_box_recon:
+           40), every render's z-buffer held to K1's plain version (zbuf
+           bit-equal, tid equal; those launches counted apart) and each
+           scene to its committed files by the tool's SCENE_GATES (poses,
+           meshes, model.ply, background, heatmap, camera configs and masks
+           equal; depth, RGB and clouds within the float32 raster rounding
+           the gates state); seconds a frame in rendering, the sensor chain
+           and writing; K1 timed at the box's and the clutter scene's
+           full-frame shapes (phase lines `scene_k1`); then a 31-frame
+           synth_box generated and the run loop over it (frame 0 register +
+           ICP + ray trace, 30 tracked frames, captures on 10, 20 and 30,
+           each registering): frame ms and the stage means
+  parity   tools/parity_check_torch.py on the five 6-frame scenes at the
+           app's defaults on the bundled networks, each field beside the
+           JAX package's PARITY_r5.json value, every scene within the
+           tool's ceilings (PARITY_ASSERT)
+  sweep    tools/sweep_register_schedule_torch.py: prune_to 64 and the
+           schedules 1x128,1x64 / 1x128,1x48 / 1x96,1x48 at shorter side
+           288: first and warm register seconds, frame-0 rotation,
+           translation and ADD-S errors (reported)
+  flops    tools/flops_report_torch.py: FlopCounterMode's FLOPs of
+           register, its cascade, a track step and the cascade's four
+           stages beside FLOPS.json's XLA figures; the cascade equal to
+           the sum of its stages
   kernels  each kernel the run launched, with its check and numbers (K1's
-           launches: the pose, train, bop, live, field and h5 phases' and
-           multi's ranks'; K2's: the run loop's in capture (b),
-           point_click's, live's and multi's ranks')
+           launches: the pose, train, bop, live, field, h5, scene, parity,
+           sweep and flops phases' and multi's ranks'; K2's: the run loop's
+           in capture (b), point_click's, live's, scene's loop, parity's
+           and multi's ranks')
 
 The last line is {"ok": true, "device": {...}}.  Without CUDA the script
 exits 1 before any result.  `run(device="cpu", small=True)` rehearses every
@@ -349,10 +378,11 @@ def _device_us(fn, n, name):
     return us / count if count and us > 0 else None
 
 
-def phase_k1(device, cases, K, diameter, n_time, phase="k1", cull=True):
+def phase_k1(device, cases, K, diameter, n_time, phase="k1", cull=True, full_frame=False):
     """K1 against its plain version: zbuf bit-equal and tid equal on every
     pixel.  @cases: (label, mesh arrays, poses, H, W); @cull: backface
-    culling, as the pose server renders (the trainer does not cull)."""
+    culling, as the pose server renders (the trainer does not cull);
+    @full_frame: the whole image, no crop (the scene generator's renders)."""
     import torch
 
     from sixdof_tpu_torch.kernels.raster import rasterize_zbuffer, rasterize_zbuffer_plain
@@ -362,7 +392,8 @@ def phase_k1(device, cases, K, diameter, n_time, phase="k1", cull=True):
     results = []
     for label, mesh_arrays, poses, H, W in cases:
         B = poses.shape[0]
-        tfs = compute_crop_window_tf_batch(poses, K, 1.2, (W, H), diameter)
+        tfs = torch.eye(3, device=device).repeat(B, 1, 1) if full_frame else \
+            compute_crop_window_tf_batch(poses, K, 1.2, (W, H), diameter)
         s = zbuffer_setup(mesh_arrays, poses, K, tfs, backface_cull=cull)
         coef, counts = s["coef_c"], s["counts"]
         zk, tk = rasterize_zbuffer(coef, counts, H, W)
@@ -2651,6 +2682,271 @@ def check_cold(res, on_card, small):
                            f"{[(runs['a'][k], runs['b'][k]) for k in same]}")
 
 
+# the six committed demo scenes: (name, frames, variant, sensor model)
+SCENE_SET = (("synth_box", 6, "box", False), ("synth_clutter", 6, "clutter", False),
+             ("synth_occl", 6, "occl", False), ("synth_box_sensor", 6, "box", True),
+             ("synth_clutter_sensor", 6, "clutter", True), ("synth_box_recon", 40, "recon", False))
+SCENE_LOOP_FRAMES = 31  # bench.py's loop: frame 0, then 30 tracked, a capture every 10
+
+
+def _tools():
+    path = os.path.join(REPO, "tools")
+    if path not in sys.path:
+        sys.path.insert(0, path)
+
+
+def _checked_render(check):
+    """render_batch, each call's z-buffer also computed through K1 (launch
+    counted apart, in check["apart"]) and K1's plain version: zbuf and tid
+    must agree, and the render's depth be that z-buffer.  The first renders
+    of each scene (check["scene"]) are kept for phase k1's timings, and the
+    seconds the checks take, a scene, in check["seconds"]."""
+    import torch
+
+    from sixdof_tpu_torch.kernels.build import launches_apart
+    from sixdof_tpu_torch.kernels.raster import rasterize_zbuffer, rasterize_zbuffer_plain
+    from sixdof_tpu_torch.ops.rasterize import render_batch, zbuffer_setup
+
+    def render(mesh, poses, K, crop_tfs=None, out_hw=(160, 160), **kw):
+        out = render_batch(mesh, poses, K, crop_tfs, out_hw=out_hw, **kw)
+        _sync(poses.device)
+        t0 = time.perf_counter()
+        H, W = out_hw
+        tfs = torch.eye(3, device=poses.device).repeat(len(poses), 1, 1)
+        s = zbuffer_setup(mesh, poses, K, tfs, backface_cull=kw.get("backface_cull", False))
+        with launches_apart(check["apart"]):
+            zk, tk = rasterize_zbuffer(s["coef_c"], s["counts"], H, W)
+        zp, tp = rasterize_zbuffer_plain(s["coef_c"], s["counts"], H, W)
+        check["renders"] += 1
+        check["max_depth_err"] = max(check["max_depth_err"], float((zk - zp).abs().max()))
+        check["tid_mismatch"] += int((tk != tp).sum())
+        check["render_depth_err"] = max(check["render_depth_err"], float(
+            (out["depth"].reshape(len(poses), -1) - zk).abs().max()))
+        first = check["first"].setdefault(check["scene"], [])
+        if len(first) < 2:
+            first.append((mesh, poses, K, H, W))
+        check["seconds"][check["scene"]] = check["seconds"].get(check["scene"], 0.0) \
+            + time.perf_counter() - t0
+        return out
+    return render
+
+
+def phase_scene(device, cfg, small, refiner, scorer):
+    """The scene generator (tools/make_demo_scene_torch.py) on the device:
+    the six committed scenes regenerated at 640x480 through K1 (every
+    render's z-buffer held to K1's plain version) and each held to its
+    committed files by SCENE_GATES; K1 timed at the generator's full-frame
+    shapes; then a 31-frame synth_box generated and the run loop driven
+    over it (frame 0 register + ICP + ray trace, 30 tracked frames,
+    captures on 10, 20, 30; each frame's ADD-S against the scene's
+    annotated poses reported).  The CPU rehearsal (@small) generates two
+    scenes of 2 frames at 120x160, compares nothing, and loops 3 frames."""
+    import shutil
+
+    import numpy as np
+
+    from sixdof_tpu_torch.app import run as app_run
+    from sixdof_tpu_torch.io.mesh_io import load_mesh
+    from sixdof_tpu_torch.io.readers import DataReader
+    from sixdof_tpu_torch.metrics import adds_err
+    from sixdof_tpu_torch.ops.geometry import compute_mesh_diameter
+
+    _tools()
+    import make_demo_scene_torch as gen
+
+    root = os.path.join(REPO, "build", "chip_smoke", "scene")
+    shutil.rmtree(root, ignore_errors=True)
+    H, W = (120, 160) if small else (480, 640)
+    scenes = (SCENE_SET[0], SCENE_SET[4]) if small else SCENE_SET
+    check = dict(apart={}, renders=0, max_depth_err=0.0, tid_mismatch=0, render_depth_err=0.0,
+                 first={}, scene=None, seconds={})
+    render = _checked_render(check)
+    results, breaches, frames = [], [], 0
+    _sync(device)
+    _kernel_counts(reset=True)
+    t_all = time.perf_counter()
+    for name, n, variant, sensor in scenes:
+        n = 2 if small else n
+        check["scene"] = name
+        stats = {}
+        out = gen.main(os.path.join(root, name), n, H=H, W=W, variant=variant, sensor=sensor,
+                       device=device, stats=stats, render=render)
+        frames += n
+        seconds = dict(stats["seconds"], check=check["seconds"][name])
+        seconds["render"] -= seconds["check"]  # the generator's own render time
+        rec = dict(scene=name, frames=n, seconds=seconds,
+                   s_per_frame={k: v / n for k, v in seconds.items()})
+        if not small:
+            diff = gen.compare_scenes(os.path.join(REPO, "demo_data", name), out, n)
+            rec["vs_committed"] = diff
+            breaches += [f"{name}: {b}" for b in gen.scene_breaches(diff)]
+        results.append(rec)
+    _sync(device)
+    generate_s = time.perf_counter() - t_all
+    k1_generate, _ = _kernel_counts()
+
+    # K1 at the generator's shapes, B=1 at full frame: the box's object and
+    # plane, and (on the card) the clutter scene's object and statics
+    cases = [(f"{name}_{what}_full_frame", mesh, poses, h, w)
+             for name in (("synth_box",) if small else ("synth_box", "synth_clutter"))
+             for what, (mesh, poses, _, h, w) in zip(("object", "statics"), check["first"][name])]
+    k1 = phase_k1(device, cases, check["first"]["synth_box"][0][2],
+                  float(compute_mesh_diameter(gen.make_object_mesh(0).vertices)),
+                  n_time=2 if small else 50, phase="scene_k1", cull=False, full_frame=True)
+
+    # a 31-frame synth_box through the run loop (the timings' launches above
+    # are not the main path's)
+    _kernel_counts(reset=True)
+    n_loop = 3 if small else SCENE_LOOP_FRAMES
+    loop_dir = gen.main(os.path.join(root, f"synth_box_{n_loop}"), n_loop, H=H, W=W,
+                        variant="box", device=device, stats={}, render=render)
+    k1_loop_scene, _ = _kernel_counts()
+    args = _loop_args(cfg, loop_dir, small, os.path.join(root, "loop_debug"),
+                      ["--no_server", "--max_frames", str(n_loop), "--capture_every",
+                       "2" if small else "10", "--track_pipeline", "3", "--debug", "0"]
+                      + (_NO_POLISH if small else []))
+    state = app_run.LoopState()
+    with _scene_icp_parameters(small):
+        _sync(device)
+        t0 = time.perf_counter()
+        frame_times = app_run.main(args, device=device, refiner=refiner, scorer=scorer,
+                                   state=state)
+        _sync(device)
+    loop_s = time.perf_counter() - t0
+    k1_after, k2_total = _kernel_counts()
+    # the tracked poses against the generated scene's annotated poses
+    reader = DataReader(loop_dir)
+    model = load_mesh(os.path.join(loop_dir, "mesh", "model_scaled_down.obj")).vertices
+    adds_mm, rot_deg = [], []
+    for i in range(n_loop):
+        pose = np.loadtxt(os.path.join(root, "loop_debug", "ob_in_cam", f"{i:04d}.txt"))
+        gt = reader.get_gt_pose(i)
+        adds_mm.append(adds_err(pose, gt, model) * 1e3)
+        rot_deg.append(_rot_deg(pose[:3, :3], gt[:3, :3]))
+    loop = dict(frames=len(frame_times), seconds=loop_s,
+                frame_ms_mean=float(np.mean(frame_times[1:]) * 1e3),
+                frame0_ms=frame_times[0] * 1e3, stages=state.stages,
+                captures=[{"frame": f, "fitness": r.fitness} for f, r in state.captures],
+                defect_points=[len(p) for p in state.intersection_pcds],
+                adds_mm=adds_mm, rot_err_deg=rot_deg,
+                k1_launches=k1_after - k1_loop_scene, k2_launches=k2_total)
+    res = dict(scenes=results, frames=frames, generate_s=generate_s,
+               renders_checked=check["renders"], max_abs_depth_err=check["max_depth_err"],
+               tid_mismatch=check["tid_mismatch"], render_depth_err=check["render_depth_err"],
+               k1_generate_launches=k1_generate, loop=loop,
+               gates=None if small else gen.SCENE_GATES, breaches=breaches)
+    emit({"phase": "scene", **_jsonable(res)})
+    expect_captures = [0, 2] if small else [0, 10, 20, 30]
+    if check["max_depth_err"] > K1_DEPTH_ATOL or check["tid_mismatch"] \
+            or check["render_depth_err"] > K1_DEPTH_ATOL:
+        raise RuntimeError(f"K1 disagrees with its plain version on a generated frame: {check}")
+    if device.type == "cuda" and (k1_generate != 2 * frames or loop["k2_launches"]
+                                  != len(expect_captures)):
+        raise RuntimeError(f"the generator launched K1 {k1_generate} times for {frames} frames "
+                           f"and the loop K2 {loop['k2_launches']} times")
+    if breaches:
+        raise RuntimeError(f"generated scenes differ from the committed ones: {breaches}")
+    # the heatmap stays where frame 0 shows the object, so later captures
+    # may trace no defect: only frame 0's is held
+    if len(frame_times) != n_loop or [c["frame"] for c in loop["captures"]] != expect_captures \
+            or loop["defect_points"][0] == 0:
+        raise RuntimeError(f"the run loop over the generated scene did not finish: {loop}")
+    if not small and loop["captures"][0]["fitness"] < CAPTURE_MIN_FITNESS:
+        raise RuntimeError(f"the generated scene's frame 0 did not register: {loop}")
+    return dict(k1=k1, launches=k1_generate + k1_after, k2_launches=k2_total)
+
+
+def phase_parity(device, cfg, small, refiner, scorer):
+    """tools/parity_check_torch.py's `all` with PARITY_ASSERT: each scene's
+    fields beside PARITY_r5.json's JAX values, every scene within the
+    tool's ceilings.  The CPU rehearsal (@small) runs synth_box's first 2
+    frames on 8 hypotheses at a tiny size and holds nothing."""
+    import contextlib
+    import io
+    from unittest import mock
+
+    from sixdof_tpu_torch.estimater import FoundationPose
+
+    _tools()
+    import parity_check_torch as pc
+
+    with open(os.path.join(REPO, "PARITY_r5.json")) as f:
+        jax_values = json.load(f)["scenes"]
+    make_engine = pc.make_engine
+    if small:
+        def make_engine(mesh, dev):
+            est = FoundationPose(model_pts=mesh.vertices, model_normals=mesh.vertex_normals,
+                                 mesh=mesh, device=dev, refiner=refiner, scorer=scorer,
+                                 prune_to=cfg.prune_to, coarse_hw=cfg.coarse_hw,
+                                 depth_polish=False, track_polish=False)
+            est.rot_grid = est.rot_grid[:: len(est.rot_grid) // 8][:8]
+            return est
+    _sync(device)
+    _kernel_counts(reset=True)
+    t0 = time.perf_counter()
+    # the tool's own indented JSON stays out of the script's lines
+    with mock.patch.object(pc, "make_engine", make_engine), _scene_icp_parameters(small), \
+            contextlib.redirect_stdout(io.StringIO()):
+        results = pc.run_all(2 if small else None, device,
+                             ("synth_box",) if small else pc.SCENES)
+    _sync(device)
+    k1, k2 = _kernel_counts()
+    breaches = [] if small else [b for k, v in results.items()
+                                 for b in pc.check_thresholds(k, v)]
+    emit({"phase": "parity", "seconds": time.perf_counter() - t0, "k1_launches": k1,
+          "k2_launches": k2, "breaches": breaches,
+          "scenes": {k: {m: {"port": v[m], "jax_r5": jax_values.get(k, {}).get(m)}
+                         for m in v} for k, v in results.items()}})
+    if breaches:
+        raise RuntimeError(f"PARITY FLOOR BREACHED: {breaches}")
+    return dict(launches=k1, k2_launches=k2)
+
+
+def phase_sweep(device, cfg, small, refiner, scorer):
+    """tools/sweep_register_schedule_torch.py: the four prune configurations'
+    first and warm register seconds and frame-0 errors (reported)."""
+    _tools()
+    import sweep_register_schedule_torch as sweep
+
+    kw = dict(shorter_side=cfg.shorter_side, warm_runs=1, n_hypotheses=8,
+              configs=sweep.CONFIGS[:2]) if small else {}
+    _sync(device)
+    _kernel_counts(reset=True)
+    with _small_engine(small):
+        records = sweep.main("synth_box", device, refiner=refiner, scorer=scorer, **kw)
+    emit({"phase": "sweep", "configs": records, "k1_launches": _kernel_counts()[0]})
+    if any(not r["warm_register_s"] > 0 for r in records):
+        raise RuntimeError(f"the sweep did not time its registers: {records}")
+    return dict(records=records, launches=_kernel_counts()[0])
+
+
+def phase_flops(device, cfg, small, refiner, scorer):
+    """tools/flops_report_torch.py: FlopCounterMode's count of register,
+    its cascade, a track step and the cascade's four stages beside
+    FLOPS.json's XLA figures; the cascade must equal its stages' sum."""
+    _tools()
+    import flops_report_torch as fr
+
+    out = os.path.join(REPO, "build", "chip_smoke", "flops.json")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    kw = dict(shorter_side=cfg.shorter_side, n_hypotheses=8, prune_to=4) if small else {}
+    _sync(device)
+    _kernel_counts(reset=True)
+    with _small_engine(small):
+        rep = fr.main(device=device, out=out, refiner=refiner, scorer=scorer, **kw)
+    _sync(device)
+    rep["k1_launches"] = _kernel_counts()[0]
+    emit({"phase": "flops", **{k: v for k, v in rep.items() if k != "register_stages"},
+          "register_stages": {k: {m: v[m] for m in ("flops", "xla_flops", "ratio_to_xla")}
+                              for k, v in rep["register_stages"].items()}})
+    if rep["register_cascade"]["flops"] != rep["register_stage_sum_flops"] \
+            or rep["register_stage_sum_flops"] <= 0:
+        raise RuntimeError("the cascade's FLOPs are not the sum of its stages': "
+                           f"{rep['register_cascade']['flops']} vs "
+                           f"{rep['register_stage_sum_flops']}")
+    return rep
+
+
 def _jsonable(x):
     """numpy values as lists and floats, for the phase's JSON line."""
     import numpy as np
@@ -2789,6 +3085,13 @@ def run(device="cuda", small=False):
     multi = phase_multi(dev, small)
     # the start-up path in fresh processes, with and without the warm-up
     phase_cold(dev, cfg, scene, small)
+    # the README's last entry points: scene synthesis through K1 at full
+    # frame (and the loop over a generated scene), the accuracy parity
+    # harness, the register schedule sweep and FLOP accounting
+    gen = phase_scene(dev, cfg, small, refiner, scorer)
+    parity = phase_parity(dev, cfg, small, refiner, scorer)
+    sweep = phase_sweep(dev, cfg, small, refiner, scorer)
+    flops = phase_flops(dev, cfg, small, refiner, scorer)
 
     main_shape = k1[0]
     kernels = [{
@@ -2796,8 +3099,9 @@ def run(device="cuda", small=False):
         "source": "sixdof_tpu_torch/csrc/raster_zbuffer.cu",
         "replaces": "sixdof_tpu/ops/pallas/raster_kernel.py:188",
         "launches": kern["launches"] + train["launches"] + bop["launches"]
-        + live["k1_launches"] + field["launches"] + h5["launches"] + multi["k1_launches"],
-        "max_abs_err": max(r["max_abs_depth_err"] for r in k1 + train["k1"]),
+        + live["k1_launches"] + field["launches"] + h5["launches"] + multi["k1_launches"]
+        + gen["launches"] + parity["launches"] + sweep["launches"] + flops["k1_launches"],
+        "max_abs_err": max(r["max_abs_depth_err"] for r in k1 + train["k1"] + gen["k1"]),
         "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"], "bound_by": main_shape["bound_by"],
         "library_ms": None,
@@ -2807,7 +3111,7 @@ def run(device="cuda", small=False):
         "source": "sixdof_tpu_torch/csrc/ray_mesh.cu",
         "replaces": "sixdof_tpu/ops/pallas/raytrace_kernel.py:85",
         "launches": cap["loop_k2_launches"] + clicks[0]["launches"] + live["k2_launches"]
-        + multi["k2_launches"],
+        + multi["k2_launches"] + gen["k2_launches"] + parity["k2_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in k2),
         "ms": k2[0]["ms"], "plain_ms": k2[0]["plain_ms"],
         "bound_ms": k2[0]["bound_ms"], "bound_by": k2[0]["bound_by"],

@@ -121,7 +121,7 @@ def intersect_rays_with_mesh(mesh: TriMesh, rays, origin, intensities, device=No
         torch.as_tensor(np.asarray(rays), dtype=torch.float32, device=dev),
         torch.ones(n, dtype=torch.bool, device=dev),
         torch.as_tensor(tri, device=dev), torch.as_tensor(tri_mask, device=dev),
-        plain=plain_raytrace,
+        use_pallas=not plain_raytrace,
     ).cpu().numpy()
     valid = np.isfinite(t)
     pts = origins[valid] + np.asarray(rays)[valid] * t[valid, None]

@@ -281,12 +281,14 @@ class CaptureContext:
 # ------------------------------------------------------------------ search --
 
 
-def predict_z_axis_adjustment(clouds: _DeviceClouds, initial_fp_transformation, param,
-                              max_adjustment=50, step=2.5):
+def predict_z_axis_adjustment(source, target, initial_fp_transformation, param,
+                              max_adjustment=50, step=2.5, clouds=None, device=None):
     """Best z offset from a ladder of one-iteration ICP probes over
     +-max_adjustment mm, all evaluated at once.  Returns (best_adjustment,
-    fitness, rmse); `tf[2,3] += best_adjustment` gives the best probe."""
-    dc = clouds
+    fitness, rmse); `tf[2,3] += best_adjustment` gives the best probe.
+    @clouds: the padded device clouds of @source and @target, when the
+    caller has them; else they are built on @device (None = the card)."""
+    dc = clouds if clouds is not None else _DeviceClouds(source, target, resolve_device(device))
     zs = np.arange(-max_adjustment, max_adjustment + step / 2, step)
     tfs = np.tile(np.eye(4, dtype=np.float32)[None], (len(zs), 1, 1))
     base = np.asarray(initial_fp_transformation, dtype=np.float32)
@@ -350,13 +352,17 @@ def _build_restarts(current_result, parameters, n_restarts=None, seed=0):
     return best_transformation, tfs, thresholds, base_thresh, max_iter, n_restarts
 
 
-def improve_result(clouds: _DeviceClouds, current_result, parameter, n_restarts=None, seed=0):
+def improve_result(source_processed, original_target_processed, current_result, parameter,
+                   n_restarts=None, seed=0, clouds=None, device=None):
     """Parallel random-restart point-to-plane refinement: all restarts in one
     batched device call, plus the unrefined transform's own score (never
     regress); the best by (fitness, -rmse).  @current_result: a
-    RegistrationResult or a raw 4x4 (object in scene)."""
+    RegistrationResult or a raw 4x4 (object in scene).  @clouds: the
+    padded device clouds of the two clouds, when the caller has them; else
+    they are built on @device (None = the card)."""
     parameters = copy.deepcopy(parameter)
-    dc = clouds
+    dc = clouds if clouds is not None else _DeviceClouds(
+        source_processed, original_target_processed, resolve_device(device))
     dev = dc.src.device
     best_transformation, tfs, thresholds, base_thresh, max_iter, K = _build_restarts(
         current_result, parameters, n_restarts, seed
@@ -398,7 +404,7 @@ def _capture_outputs(tf_all, fit, rmse, best, t, ray_dirs, ray_mask, intensities
 
 def capture_event(source_processed, target_processed, current_result, parameter,
                   model_mesh, ray_dirs, ray_mask, intensities, color_to_depth,
-                  ctx: CaptureContext, n_restarts=None, seed=0):
+                  n_restarts=None, seed=0, clouds=None, ctx: CaptureContext = None, device=None):
     """One defect-capture event as one device program: restart ICP + the
     initial transform's evaluation + the best pick + the defect ray trace on
     the re-posed mesh (ops/icp.py::improve_and_raytrace), read back at once.
@@ -406,18 +412,30 @@ def capture_event(source_processed, target_processed, current_result, parameter,
     @model_mesh: TriMesh in the MODEL frame (mm); @ray_dirs/@ray_mask/
     @intensities: colour-frame heatmap rays (defect_projection.compute_rays).
     The device constants and the ray-trace route (kernel or plain) come from
-    @ctx.  Returns (RegistrationResult, intersection PointCloud)."""
+    @ctx; without one a context is built for this call, on the device of
+    @clouds (the padded clouds, whose source and target then stand in for
+    @source_processed and @target_processed, as in JAX) or on @device
+    (None = the card).  Returns (RegistrationResult, intersection PointCloud)."""
     join_precompile()
     parameters = copy.deepcopy(parameter)
     best_transformation, tfs, thresholds, base_thresh, max_iter, K = _build_restarts(
         current_result, parameters, n_restarts, seed
     )
+    from_clouds = ctx is None and clouds is not None
+    if ctx is None:
+        ctx = CaptureContext(target_processed, model_mesh, color_to_depth,
+                             device=clouds.src.device if from_clouds else device)
     ctx.check(target_processed, model_mesh, color_to_depth)
     dev = ctx.device
-    src, src_mask = _pad_cloud(source_processed.points, dev)
+    if from_clouds:
+        src, src_mask = clouds.src, clouds.src_mask
+        tgt, tgt_normals, tgt_mask = clouds.tgt, clouds.tgt_normals, clouds.tgt_mask
+    else:
+        src, src_mask = _pad_cloud(source_processed.points, dev)
+        tgt, tgt_normals, tgt_mask = ctx.tgt, ctx.tgt_normals, ctx.tgt_mask
     rays_d, ray_mask_d, intensities = ctx.rays_device(ray_dirs, ray_mask, intensities)
     arrs = icp_ops.improve_and_raytrace(
-        src, src_mask, ctx.tgt, ctx.tgt_normals, ctx.tgt_mask,
+        src, src_mask, tgt, tgt_normals, tgt_mask,
         torch.as_tensor(tfs, device=dev), torch.as_tensor(thresholds, device=dev),
         torch.as_tensor(best_transformation, dtype=torch.float32, device=dev), base_thresh,
         ctx.tri, ctx.tri_mask, rays_d, ray_mask_d, ctx.depth_to_color, max_iter=max_iter,
@@ -527,12 +545,13 @@ def refine_pose_with_icp(source, target, background, initial_fp_transformation, 
 
     clouds = _DeviceClouds(source_processed, target_processed, dev)
     z_adjustment, best_fitness, best_rmse = predict_z_axis_adjustment(
-        clouds, initial_fp_transformation, param)
+        source_processed, target_processed, initial_fp_transformation, param, clouds=clouds)
     initial_fp_transformation[2, 3] += z_adjustment
     logging.info(f":: Predicted Z-axis adjustment: {z_adjustment:.2f}mm")
 
     result_icp = RegistrationResult(initial_fp_transformation, best_fitness, best_rmse)
-    best_result_icp = improve_result(clouds, result_icp, param)
+    best_result_icp = improve_result(source_processed, target_processed, result_icp, param,
+                                     clouds=clouds)
     logging.info(
         f"-- Final Results"
         f"\n:: Refine registration results: Inlier_rmse: {best_result_icp.inlier_rmse:.4f}, "
@@ -618,12 +637,14 @@ def determine_pose(source, target, background, initial_fp_transformation, parame
     clouds = _DeviceClouds(source_processed, target_processed, dev)
     if not icp:
         z_adjustment, best_fitness, best_rmse = predict_z_axis_adjustment(
-            clouds, initial_fp_transformation, param)
+            source_processed, target_processed, initial_fp_transformation, param,
+            clouds=clouds)
         initial_fp_transformation = np.array(initial_fp_transformation, dtype=np.float64)
         initial_fp_transformation[2, 3] += z_adjustment
         result_icp = RegistrationResult(initial_fp_transformation, best_fitness, best_rmse)
 
-    best_result_icp = improve_result(clouds, result_icp, param)
+    best_result_icp = improve_result(source_processed, target_processed, result_icp, param,
+                                     clouds=clouds)
     logging.info(
         f"-- Final Results"
         f"\n:: Refine registration results: Inlier_rmse: {best_result_icp.inlier_rmse:.4f}, "

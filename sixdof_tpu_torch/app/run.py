@@ -56,7 +56,8 @@ from ..io.mesh_io import TriMesh, load_mesh
 from ..io.png import write_png_rgb8
 from ..io.readers import DataReader, KinectReader
 from ..models.predict import PoseRefinePredictor, ScorePredictor
-from ..utils.profiling import StageTimer, set_seed
+from ..utils.logging_utils import set_seed
+from ..utils.profiling import StageTimer
 from ..utils.vis import draw_posed_3d_box, draw_xyz_axis
 from . import web_vis
 from .defect_projection import (compute_rays, create_heatmap_overlay, heatmap_to_points,

@@ -1,8 +1,9 @@
 """FoundationPose engine: rotation-grid registration + frame-to-frame tracking.
 
-Port of `sixdof_tpu/estimater.py::FoundationPose`: `register(K, rgb, depth,
-ob_mask, iteration)` on the first frame and `track_one(rgb, depth, K,
-iteration)` on every later one, with the same conventions (meters, OpenCV
+Port of `sixdof_tpu/estimater.py::FoundationPose`, with its signatures:
+`register(K, rgb, depth, ob_mask, ob_id=None, glctx=None, iteration=5)` on
+the first frame and `track_one(rgb, depth, K, iteration, extra=None,
+sync=True)` on every later one, with the same conventions (meters, OpenCV
 colour-camera frame, poses w.r.t. the ORIGINAL mesh origin via the
 centred-mesh compose).  Depth filtering, hypothesis rendering, refinement,
 scoring and the depth polishes run on the estimator's device; the host
@@ -125,15 +126,15 @@ class PendingPose:
 
     __slots__ = ("_dev", "_host", "_event", "_tf", "_np")
 
-    def __init__(self, dev_pose, tf_to_centered_mesh):
-        self._dev = dev_pose
-        if dev_pose.is_cuda:
-            self._host = torch.empty(dev_pose.shape, dtype=dev_pose.dtype, pin_memory=True)
-            self._host.copy_(dev_pose, non_blocking=True)
+    def __init__(self, dev, tf_to_centered_mesh):
+        self._dev = dev
+        if dev.is_cuda:
+            self._host = torch.empty(dev.shape, dtype=dev.dtype, pin_memory=True)
+            self._host.copy_(dev, non_blocking=True)
             self._event = torch.cuda.Event()
             self._event.record()
         else:
-            self._host = dev_pose.clone()
+            self._host = dev.clone()
             self._event = None
         self._tf = tf_to_centered_mesh
         self._np = None
@@ -157,10 +158,13 @@ class PendingPose:
 class FoundationPose:
     def __init__(self, model_pts, model_normals, symmetry_tfs=None, mesh: TriMesh = None,
                  scorer: ScorePredictor = None, refiner: PoseRefinePredictor = None,
-                 device=None, debug=0, debug_dir="debug/fp", prune_to=None, coarse_hw=(96, 96),
-                 prune_schedule=None, track_crop=True, polish_top=0, polish_iters=2,
-                 depth_polish=True, track_polish=True, plain_raster=False, device_mesh=None):
-        """@prune_to: keep this many hypotheses after 2 coarse refine
+                 glctx=None, debug=0, debug_dir="debug/fp", prune_to=None, device_mesh=None,
+                 coarse_hw=(96, 96), prune_schedule=None, track_crop=True, polish_top=0,
+                 polish_iters=2, depth_polish=True, track_polish=True, device=None,
+                 plain_raster=False):
+        """The JAX engine's parameters in its order, then the port's own
+        (@device, @plain_raster).  @glctx: accepted and ignored, as in JAX.
+        @prune_to: keep this many hypotheses after 2 coarse refine
         iterations over the full grid at @coarse_hw (None: no pruning).
         @prune_schedule: (iters, keep) coarse stages in place of prune_to's
         single cut (models/predict.py::register_pipeline).
@@ -320,7 +324,9 @@ class FoundationPose:
         zc = np.median(np.asarray(depth)[valid])
         return (np.linalg.inv(K) @ np.array([uc, vc, 1.0]).reshape(3, 1) * zc).reshape(3)
 
-    def generate_random_pose_hypo(self, K, rgb, depth, mask):
+    def generate_random_pose_hypo(self, K, rgb, depth, mask, scene_pts=None):
+        """The rotation grid at the mask's guessed translation (@scene_pts:
+        accepted and unused, as in JAX)."""
         ob_in_cams = self.rot_grid.copy()
         ob_in_cams[:, :3, 3] = self.guess_translation(depth=depth, mask=mask, K=K).reshape(1, 3)
         return ob_in_cams
@@ -396,7 +402,7 @@ class FoundationPose:
         pose_t = torch.as_tensor(pose, device=dev).reshape(1, 4, 4)
         depth_mm = np.round(depth * 1000.0).astype(np.uint16)
         part("track", lambda: self._readback(
-            [self._track_step(pose_t, rgb, depth_mm, K, track_iteration)]))
+            [self._track_step(pose_t, rgb, depth_mm, K, track_iteration)[0]]))
         if icp_parameters is not None:
             part("capture", lambda: self._readback(self._capture_program(pose_t,
                                                                           icp_parameters)))
@@ -450,9 +456,11 @@ class FoundationPose:
 
     # ------------------------------------------------------------- infer --
 
-    def register(self, K, rgb, depth, ob_mask, iteration=5):
+    def register(self, K, rgb, depth, ob_mask, ob_id=None, glctx=None, iteration=5):
         """Global pose estimation over the rotation grid: the coarse-to-fine
-        cascade (models/predict.py::register_pipeline), then the depth polish."""
+        cascade (models/predict.py::register_pipeline), then the depth polish.
+        @ob_id is kept as `self.ob_id`; @glctx is accepted and ignored, as in
+        JAX."""
         self._join_precompile()
         depth_t = self._filtered_depth(depth)
         depth_np = depth_t.cpu().numpy()
@@ -461,6 +469,10 @@ class FoundationPose:
             pose = np.eye(4)
             pose[:3, 3] = self.guess_translation(depth=depth_np, mask=ob_mask, K=K)
             return pose
+        self.H, self.W = depth_np.shape[:2]
+        self.K = K
+        self.ob_id = ob_id
+        self.ob_mask = ob_mask
         poses = self.generate_random_pose_hypo(K=K, rgb=rgb, depth=depth_np, mask=ob_mask)
         if self.debug >= 2 or self.device_mesh is not None:
             return self._register_staged(K, rgb, depth_t, depth_np, ob_mask, poses, iteration)
@@ -631,11 +643,13 @@ class FoundationPose:
         return dict(polish_tgt=self._polish_tgt_small, polish_tn=self._polish_tn_small,
                     polish_tmask=self._polish_tmask_small)
 
-    def track_one(self, rgb, depth, K, iteration, sync=True):
+    def track_one(self, rgb, depth, K, iteration, extra=None, sync=True):
         """Single-hypothesis refinement from the previous frame's pose.
         @sync=False returns a PendingPose: the pose chain stays on the device
         and its host copy is started without blocking.  At debug >= 2 the
-        whole frame goes up (no upload crop)."""
+        whole frame goes up (no upload crop), and @extra (a dict) gets
+        "vis": the refiner's crops of the tracked pose, one more iteration
+        on the track step's filtered depth, as JAX's track_one draws them."""
         if self.pose_last is None:
             raise RuntimeError("track_one needs a pose: call register first")
         self._join_precompile()
@@ -662,7 +676,16 @@ class FoundationPose:
         else:
             pose_last = torch.as_tensor(np.asarray(self.pose_last).reshape(1, 4, 4),
                                         dtype=torch.float32, device=dev)
-        pose = self._track_step(pose_last, rgb_np, depth_np, K_use, iteration)
+        pose, depth_filtered = self._track_step(pose_last, rgb_np, depth_np, K_use, iteration)
+        if self.debug >= 2:
+            K_t = torch.as_tensor(np.asarray(K), dtype=torch.float32, device=dev)
+            _, vis = self.refiner.predict(
+                mesh=self.mesh, mesh_tensors=self.mesh_tensors, rgb=rgb, depth=depth_filtered,
+                K=K, ob_in_cams=pose.reshape(1, 4, 4), xyz_map=depth2xyzmap(depth_filtered, K_t),
+                mesh_diameter=self.diameter, iteration=1, get_vis=True,
+                plain_raster=self.plain_raster)
+            if extra is not None:
+                extra["vis"] = vis
         self.pose_last = pose  # the chain stays on the device
         if not sync:
             pending = PendingPose(pose, self.get_tf_to_centered_mesh())
@@ -675,12 +698,12 @@ class FoundationPose:
     def _track_step(self, pose_last, rgb_u8, depth_u16, K, iteration):
         """One track step on the device from the (1,4,4) @pose_last on the
         uint8 colour and uint16-mm depth (one packed upload).  Returns the
-        (1,4,4) pose."""
+        (1,4,4) pose and the filtered depth."""
         ref = self.refiner
         dev = self.device
         rgbd = torch.from_numpy(pack_rgbd(np.ascontiguousarray(rgb_u8),
                                           np.ascontiguousarray(depth_u16))).to(dev)
-        pose, _ = track_pose(
+        return track_pose(
             ref.model, self.mesh_tensors, pose_last, rgbd,
             torch.as_tensor(K, dtype=torch.float32, device=dev), *self._scalar_args(),
             iterations=int(iteration), out_hw=tuple(ref.cfg["input_resize"]),
@@ -688,4 +711,3 @@ class FoundationPose:
             backface_cull=self.backface_cull, occ_sub=ref.cfg.get("occ_sub", False),
             plain_raster=self.plain_raster, compute_dtype=ref.compute_dtype,
             trans_rep=ref.cfg["trans_rep"], **self._track_polish_kwargs())
-        return pose

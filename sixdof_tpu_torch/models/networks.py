@@ -224,6 +224,8 @@ class ScoreNetMultiPair(nn.Module):
         tokens = tokens + _position_embedding(tokens.shape[1], 512, tokens.device).to(tokens.dtype)
         return self.att(tokens).mean(dim=1)
 
+    extract_feat = features  # the flax module's name for this part
+
     def cross(self, feats, L):
         """The cross-hypothesis part: `att_cross` over each group of L
         features, then `linear`.  feats: (n*L, 512); returns (n, L).  Every

@@ -8,6 +8,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+GLCAM_IN_CVCAM = np.diag([1.0, -1.0, -1.0, 1.0])  # OpenGL camera in the OpenCV camera
+
 
 def to_homo(pts):
     """(...,N,D) -> (...,N,D+1): append ones."""

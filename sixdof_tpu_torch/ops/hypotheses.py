@@ -11,8 +11,9 @@ import numpy as np
 from .lie import euler_matrix
 
 
-def icosphere(subdivisions=1):
-    """Unit icosphere by icosahedron subdivision (12, 42, 162, ... vertices)."""
+def icosphere(subdivisions=1, radius=1.0):
+    """Icosphere of @radius by icosahedron subdivision (12, 42, 162, ...
+    vertices)."""
     t = (1.0 + np.sqrt(5.0)) / 2.0
     verts = np.array(
         [
@@ -52,18 +53,23 @@ def icosphere(subdivisions=1):
             new_faces += [[a, ab, ca], [b, bc, ab], [c, ca, bc], [ab, bc, ca]]
         verts = np.array(verts_list)
         faces = np.array(new_faces, dtype=np.int64)
-    return verts, faces
+    return verts * radius, faces
 
 
-def sample_views_icosphere(n_views):
-    """Camera-in-object poses looking at the origin from icosphere vertices
-    (up=+z; degenerate poles get x=[1,0,0]).  Returns (V,4,4)."""
-    subdivision = 1
-    while True:
-        verts, _ = icosphere(subdivisions=subdivision)
-        if verts.shape[0] >= n_views:
-            break
-        subdivision += 1
+def sample_views_icosphere(n_views, subdivisions=None, radius=1.0):
+    """Camera-in-object poses looking at the origin from the vertices of an
+    icosphere of @radius: @subdivisions times subdivided, or else the first
+    with at least @n_views vertices (up=+z; degenerate poles get
+    x=[1,0,0]).  Returns (V,4,4)."""
+    if subdivisions is not None:
+        verts, _ = icosphere(subdivisions=subdivisions, radius=radius)
+    else:
+        subdivision = 1
+        while True:
+            verts, _ = icosphere(subdivisions=subdivision, radius=radius)
+            if verts.shape[0] >= n_views:
+                break
+            subdivision += 1
     cam_in_obs = np.tile(np.eye(4)[None], (len(verts), 1, 1))
     cam_in_obs[:, :3, 3] = verts
     up = np.array([0, 0, 1.0])

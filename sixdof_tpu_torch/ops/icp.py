@@ -188,7 +188,7 @@ def improve_and_raytrace(src, src_mask, tgt, tgt_normals, tgt_mask, init_tfs, ma
     tri_w = torch.einsum("ij,tkj->tki", M[:3, :3], mesh_tri) + M[:3, 3]
     origins = torch.zeros_like(ray_dirs)
     t_hit = gather(ray_mesh_intersect(origins, ray_dirs, ray_mask, tri_w, mesh_tri_mask,
-                                      plain=plain_raytrace))
+                                      use_pallas=not plain_raytrace))
     return tf_all, fit, rmse, best, t_hit
 
 

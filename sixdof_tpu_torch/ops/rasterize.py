@@ -96,7 +96,7 @@ def _sample_texture(tex, uv):
             + tex[y1, x0] * (1 - fx) * fy + tex[y1, x1] * fx * fy)
 
 
-def _tri_setup(uv_crop, z_cam, faces):
+def _tri_setup(uv_crop, z_cam, faces, znear=ZNEAR):
     """Per-triangle plane coefficients, batched over poses.
 
     @uv_crop: (B,V,2); @z_cam: (B,V).  Returns (coef (B,T,4,3), valid (B,T)):
@@ -109,7 +109,7 @@ def _tri_setup(uv_crop, z_cam, faces):
     area = (v1[..., 0] - v0[..., 0]) * (v2[..., 1] - v0[..., 1]) - (
         v1[..., 1] - v0[..., 1]) * (v2[..., 0] - v0[..., 0])
     nonzero = torch.abs(area) > 1e-12
-    valid = nonzero & (z0 > ZNEAR) & (z1 > ZNEAR) & (z2 > ZNEAR)
+    valid = nonzero & (z0 > znear) & (z1 > znear) & (z2 > znear)
     inv_area = torch.where(valid, 1.0 / torch.where(nonzero, area, 1.0), 0.0)
 
     def edge_coef(a, b):
@@ -136,7 +136,7 @@ def _attr_plane_table(vertex_attr, faces, z_cam, coef):
     return torch.cat([flat, torch.zeros_like(flat[:, :1])], dim=1)
 
 
-def zbuffer_setup(mesh: MeshArrays, poses, K, crop_tfs, backface_cull=False):
+def zbuffer_setup(mesh: MeshArrays, poses, K, crop_tfs, backface_cull=False, znear=ZNEAR):
     """Vertex projection, triangle planes, culling and the valid-first
     compaction that feeds kernel K1.
 
@@ -147,11 +147,11 @@ def zbuffer_setup(mesh: MeshArrays, poses, K, crop_tfs, backface_cull=False):
     p_cam = torch.matmul(mesh.pos, R.transpose(1, 2)) + t[:, None]  # (B,V,3)
     z_all = p_cam[..., 2]
     uvw = torch.matmul(p_cam, K.T)
-    uv = uvw[..., :2] / torch.clamp(uvw[..., 2:3], min=ZNEAR)
+    uv = uvw[..., :2] / torch.clamp(uvw[..., 2:3], min=znear)
     uvh = torch.cat([uv, torch.ones_like(uv[..., :1])], dim=-1)
     uv_all = torch.matmul(uvh, crop_tfs.transpose(1, 2))[..., :2]
     faces = mesh.faces
-    coef, valid = _tri_setup(uv_all, z_all, faces)
+    coef, valid = _tri_setup(uv_all, z_all, faces, znear)
     if backface_cull:
         # camera-space facing test: outward normal vs the view ray to v0
         v0 = p_cam[:, faces[:, 0]]
@@ -164,13 +164,21 @@ def zbuffer_setup(mesh: MeshArrays, poses, K, crop_tfs, backface_cull=False):
 
 
 @torch.no_grad()
-def render_batch(mesh: MeshArrays, poses, K, crop_tfs=None, out_hw=(160, 160), get_normal=False,
+def render_batch(mesh: MeshArrays, poses, K, crop_tfs=None, out_hw=(160, 160), znear=ZNEAR,
+                 tri_chunk=64, pose_chunk=32, pallas_tri_chunk=128, get_normal=False,
                  use_light=True, w_ambient=W_AMBIENT, w_diffuse=W_DIFFUSE, light_dir=LIGHT_DIR,
-                 backface_cull=False, plain_raster=False):
+                 use_pallas=None, backface_cull=False, band_min_tris=4096, pallas_tile=2048,
+                 plain_raster=False):
     """Render B hypotheses into their crop windows.
 
+    JAX's parameters in its order.  @tri_chunk, @pose_chunk,
+    @pallas_tri_chunk, @band_min_tris and @pallas_tile size the JAX
+    package's XLA and Pallas tiles; they are accepted and unused (K1 tiles
+    itself).  @use_pallas=False takes the plain raster, as it takes JAX's
+    XLA scan; None or True the kernel on a CUDA tensor.
     @poses: (B,4,4) object-in-camera (OpenCV convention); @K: (3,3);
     @crop_tfs: (B,3,3) full-image -> crop pixel transform, or None.
+    @znear: triangles with a vertex nearer than this are dropped.
     @use_light: Lambertian shading, colour * (w_ambient + w_diffuse *
     clip(n . -light_dir)), the diffuse term interpolated per vertex; else
     the bare vertex or texture colour.
@@ -188,7 +196,7 @@ def render_batch(mesh: MeshArrays, poses, K, crop_tfs=None, out_hw=(160, 160), g
     if crop_tfs is None:
         crop_tfs = torch.eye(3, dtype=torch.float32, device=dev).repeat(B, 1, 1)
     crop_tfs = crop_tfs.float()
-    setup = zbuffer_setup(mesh, poses, K, crop_tfs, backface_cull)
+    setup = zbuffer_setup(mesh, poses, K, crop_tfs, backface_cull, znear)
     order = setup["order"]
 
     # per-pose shading channels -> attribute plane table: uv (textured) or
@@ -208,7 +216,8 @@ def render_batch(mesh: MeshArrays, poses, K, crop_tfs=None, out_hw=(160, 160), g
         chans.append(n_cam_v)
     table = _attr_plane_table(torch.cat(chans, dim=-1), mesh.faces, setup["z"], setup["coef"])
 
-    raster = rasterize_zbuffer_plain if plain_raster else rasterize_zbuffer
+    raster = rasterize_zbuffer_plain if plain_raster or use_pallas is False \
+        else rasterize_zbuffer
     zflat, tid_c = raster(setup["coef_c"], setup["counts"], H, W)
     hit = tid_c >= 0
     tid = torch.gather(order, 1, torch.clamp(tid_c, min=0).long())  # original triangle ids

@@ -13,17 +13,18 @@ import torch
 from ..kernels import raytrace as k2
 
 
-def ray_mesh_intersect(origins, dirs, ray_mask, tri_verts, tri_mask, plain=False):
+def ray_mesh_intersect(origins, dirs, ray_mask, tri_verts, tri_mask, use_pallas=None):
     """First-hit distances of rays against a triangle soup.
 
     @origins/@dirs: (N,3) rays (dirs need not be unit; t is in dir units);
     @ray_mask: (N,) valid-ray mask; @tri_verts: (T,3,3); @tri_mask: (T,).
-    @plain: take the kernel's plain PyTorch version on any device (a
-    comparison run).  Returns t_hit (N,) float32, +inf for misses and
-    masked rays.
+    @use_pallas (JAX's name): False takes the kernel's plain PyTorch
+    version on any device (a comparison run), as it takes JAX's XLA form;
+    None or True kernel K2 on a CUDA tensor.  Returns t_hit (N,) float32,
+    +inf for misses and masked rays.
     """
     tris = k2.pack_tris(tri_verts, tri_mask)
-    fn = k2.ray_mesh_intersect_plain if plain else k2.ray_mesh_intersect
+    fn = k2.ray_mesh_intersect_plain if use_pallas is False else k2.ray_mesh_intersect
     return fn(origins.to(torch.float32).contiguous(), dirs.to(torch.float32).contiguous(),
               ray_mask.to(torch.bool).contiguous(), tris)
 

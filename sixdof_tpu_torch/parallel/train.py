@@ -416,8 +416,12 @@ class _Trainer:
     name = ""
 
     def __init__(self, model, mesh_arrays: MeshArrays, K, mesh_diameter,
-                 cfg: TrainConfig = TrainConfig(), params=None, seed=0, device_mesh=None,
-                 _shared=None):
+                 cfg: TrainConfig = TrainConfig(), device_mesh=None, params=None, tx=None,
+                 seed=0, _shared=None):
+        """JAX's parameters in its order: @params a state dict to start from
+        (else a flax-style initialisation from @seed); @tx a function from
+        the model's parameters to its optimiser (optax's transform; default
+        Adam at cfg.lr)."""
         self.model = model
         self.mesh_arrays = mesh_arrays
         self.device = mesh_arrays.pos.device
@@ -438,7 +442,7 @@ class _Trainer:
         model.to(self.device).train()
         if device_mesh is not None and device_mesh.shape["model"] > 1:
             shard_model(model, device_mesh)
-        self.optimizer = torch.optim.Adam(model.parameters(), lr=cfg.lr)
+        self.optimizer = (tx or (lambda ps: torch.optim.Adam(ps, lr=cfg.lr)))(model.parameters())
 
     def _init(self, model, gen):
         init_flax_style(model, gen)
@@ -461,6 +465,18 @@ class _Trainer:
         """One step on a fresh batch from @gen; returns the loss as a 0-d
         device tensor (no host synchronisation without a mesh)."""
         return self.update(self.batch(gen))
+
+    def train(self, n_steps, generator=None, log_every=10):
+        """@n_steps steps drawing from @generator (default seeded 0, where
+        JAX's default key is PRNGKey(0)); returns the losses as floats."""
+        gen = generator if generator is not None \
+            else torch.Generator(device=self.device).manual_seed(0)
+        losses = []
+        for i in range(n_steps):
+            losses.append(float(self.step(gen)))
+            if log_every and i % log_every == 0:
+                logging.info(f"{self.name} step {i}: loss {losses[-1]:.5f}")
+        return losses
 
     def gradients(self, batch):
         """Forward and backward on @batch, the gradients averaged across the

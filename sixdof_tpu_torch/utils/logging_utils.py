@@ -1,17 +1,27 @@
 """Logging and timing helpers.
 
 Port of `sixdof_tpu/utils/logging_utils.py::{set_logging_format, timeit,
-rle_to_mask, make_yaml_dumpable}` (the seeding helper is
-`utils/profiling.py::set_seed`).
+rle_to_mask, make_yaml_dumpable, set_seed}`.
 """
 from __future__ import annotations
 
 import functools
 import importlib
 import logging
+import random
 import time
 
 import numpy as np
+import torch
+
+
+def set_seed(random_seed):
+    """Seed numpy's and Python's global generators, as JAX's set_seed does,
+    and torch's (the main path's own randomness uses explicit
+    `np.random.RandomState`s)."""
+    np.random.seed(random_seed)
+    random.seed(random_seed)
+    torch.manual_seed(random_seed)
 
 
 def set_logging_format(level=logging.INFO):

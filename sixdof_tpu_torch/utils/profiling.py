@@ -1,25 +1,14 @@
-"""Frame-loop stage timing and seeding.
+"""Frame-loop stage timing.
 
-Port of the host parts of `sixdof_tpu/utils/profiling.py::StageTimer` and
-`sixdof_tpu/utils/logging_utils.py::set_seed`.  Stage times are host wall
-clock: a stage that ends without a device synchronise measures dispatch.
+Port of the host parts of `sixdof_tpu/utils/profiling.py::StageTimer`.
+Stage times are host wall clock: a stage that ends without a device synchronise measures dispatch.
 """
 from __future__ import annotations
 
 import contextlib
 import logging
-import random
 import time
 from collections import defaultdict
-
-import numpy as np
-
-
-def set_seed(random_seed):
-    """Seed numpy's and Python's global generators (the main path's own
-    randomness uses explicit `np.random.RandomState`s)."""
-    np.random.seed(random_seed)
-    random.seed(random_seed)
 
 
 class StageTimer:
