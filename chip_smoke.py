@@ -2,8 +2,9 @@
 """Run the PyTorch/CUDA port's pose server, capture path, trainer, JPEG
 decoder, BOP campaign, live-camera loop, neural object field, H5 pose-pair
 path, its multi-device path (the data and the model axis), its start-up
-path, and its scene synthesis, accuracy parity harness, register schedule
-sweep and FLOP accounting on one NVIDIA card and check them.
+path, its scene synthesis, accuracy parity harness and artifact, register
+schedule sweep and FLOP accounting, and the evaluation of trained weights
+on one NVIDIA card and check them.
 
     python3 chip_smoke.py
 
@@ -185,10 +186,16 @@ non-zero without printing the final result:
            synth_box generated and the run loop over it (frame 0 register +
            ICP + ray trace, 30 tracked frames, captures on 10, 20 and 30,
            each registering): frame ms and the stage means
-  parity   tools/parity_check_torch.py on the five 6-frame scenes at the
-           app's defaults on the bundled networks, each field beside the
-           JAX package's PARITY_r5.json value, every scene within the
-           tool's ceilings (PARITY_ASSERT)
+  parity   the port's parity artifact (tools/make_parity_artifact_torch.py):
+           tools/parity_check_torch.py on the five 6-frame scenes at the
+           app's defaults on the bundled networks, the network-mode rows
+           (synth_box, synth_clutter) and the clutter rank0 probe (prune_to
+           64, depth polish), each field beside the JAX package's
+           PARITY_r5.json value; every scene within the tool's ceilings,
+           the rank0 probe's ADD-S within 5 mm (its rotation and the
+           network rows reported: off the TPU the JAX package flips
+           there too); the artifact printed as one line
+           (`parity_artifact`; PARITY_torch_r1.json is that line)
   sweep    tools/sweep_register_schedule_torch.py: prune_to 64 and the
            schedules 1x128,1x64 / 1x128,1x48 / 1x96,1x48 at shorter side
            288: first and warm register seconds, frame-0 rotation,
@@ -197,11 +204,22 @@ non-zero without printing the final result:
            register, its cascade, a track step and the cascade's four
            stages beside FLOPS.json's XLA figures; the cascade equal to
            the sum of its stages
+  evaluate evaluating trained weights: (a) tools/eval_register_torch.py on
+           synth_box with the bundled networks (the refiner's basin at 5,
+           10, 20, 30 and 45 deg, the refined 252-pose grid, the scorer's
+           ranking), the basin at 5 and 20 deg again through K1's plain
+           version (the pose phase's limits), K1 against its plain version
+           at the basin's B=8 160x160 (`evaluate_k1`); (b) phase train's
+           nets saved as a candidate whose refiner was trained with
+           occ_sub 0.85, tools/eval_candidate_torch.py on it with
+           synth_box: EVAL.json with the JAX tool's keys, its
+           clutter_rank0.occ_sub 0.85 and every refine handed 0.85 as a
+           float (accuracy reported, not held)
   kernels  each kernel the run launched, with its check and numbers (K1's
            launches: the pose, train, bop, live, field, h5, scene, parity,
-           sweep and flops phases' and multi's ranks'; K2's: the run loop's
-           in capture (b), point_click's, live's, scene's loop, parity's
-           and multi's ranks')
+           sweep, flops and evaluate phases' and multi's ranks'; K2's: the
+           run loop's in capture (b), point_click's, live's, scene's loop,
+           parity's, evaluate's and multi's ranks')
 
 The last line is {"ok": true, "device": {...}}.  Without CUDA the script
 exits 1 before any result.  `run(device="cpu", small=True)` rehearses every
@@ -1476,7 +1494,8 @@ def phase_train(device, cfg, scene, small):
     emit({"phase": "train", "part": "training", **res})
     if not (round_trip and res["checkpoint"]["register_pose_finite"]):
         raise RuntimeError(f"checkpoint round trip failed: {res['checkpoint']}")
-    return dict(k1=k1, launches=train_launches)
+    # the trained nets: phase evaluate's candidate
+    return dict(k1=k1, launches=train_launches, models=(rts[0].model, sts[0].model))
 
 
 # the BOP campaign's ceilings: tools/parity_check.py's THRESHOLDS of the two
@@ -2856,50 +2875,241 @@ def phase_scene(device, cfg, small, refiner, scorer):
     return dict(k1=k1, launches=k1_generate + k1_after, k2_launches=k2_total)
 
 
-def phase_parity(device, cfg, small, refiner, scorer):
-    """tools/parity_check_torch.py's `all` with PARITY_ASSERT: each scene's
-    fields beside PARITY_r5.json's JAX values, every scene within the
-    tool's ceilings.  The CPU rehearsal (@small) runs synth_box's first 2
-    frames on 8 hypotheses at a tiny size and holds nothing."""
+# the parity artifact's gate beside the five scenes' ceilings: the clutter
+# rank0 probe's ADD-S before ICP (mm).  Its rotation and the network-mode
+# rows are reported, not held: off the TPU the JAX package registers the
+# same 180 deg flip of the clutter object at prune_to 64 (176.07 deg, 3.61
+# mm, bf16 on the CPU), and its network-only scorer gives synth_clutter's
+# top hypotheses equal scores in float32 (the flip, 176.07 deg) and scores
+# 2e-3 apart in bf16, where rounding picks the pose (PERF.md §6,
+# tools/network_scorer_ties.py)
+CLUTTER_RANK0_ADDS_MM_MAX = 5.0
+
+
+def _small_tools(small, cfg):
+    """Context in which the tools' own engines and predictors run at the
+    CPU rehearsal's size (8 hypotheses of the grid, @cfg's coarse renders,
+    prune and crops, no depth or track polish: their brute-force nearest
+    neighbours over full frames take minutes on the CPU), the harness on 2
+    frames with the cut ICP; nothing where not @small."""
     import contextlib
-    import io
+    import functools
     from unittest import mock
 
-    from sixdof_tpu_torch.estimater import FoundationPose
+    import sixdof_tpu_torch.estimater as estimater
+    from sixdof_tpu_torch.models import predict
 
     _tools()
     import parity_check_torch as pc
 
+    if not small:
+        return contextlib.nullcontext()
+
+    class Small(estimater.FoundationPose):
+        def __init__(self, *args, **kw):
+            kw.update(coarse_hw=cfg.coarse_hw, depth_polish=False, track_polish=False)
+            if kw.get("prune_to"):
+                kw["prune_to"] = min(kw["prune_to"], cfg.prune_to)
+            super().__init__(*args, **kw)
+            self.rot_grid = self.rot_grid[:: len(self.rot_grid) // 8][:8]
+
+    def sized(cls):
+        def make(device=None, cfg=None, **kw):
+            return cls(device, cfg={**(cfg or {}), "input_resize": crops}, **kw)
+        return make
+
+    crops = cfg.input_resize
+    stack = contextlib.ExitStack()
+    stack.enter_context(mock.patch.object(estimater, "FoundationPose", Small))
+    for name in ("PoseRefinePredictor", "ScorePredictor"):
+        stack.enter_context(mock.patch.object(predict, name, sized(getattr(predict, name))))
+    stack.enter_context(mock.patch.object(pc, "main", functools.partial(pc.main, n_frames=2)))
+    stack.enter_context(_scene_icp_parameters(small))
+    return stack
+
+
+def phase_parity(device, cfg, small):
+    """tools/make_parity_artifact_torch.py: the five 6-frame scenes
+    (tools/parity_check_torch.py at the app's defaults on the bundled
+    networks), the network-mode rows and the clutter rank0 probe, each
+    field beside the JAX package's PARITY_r5.json value; every scene within
+    the tool's ceilings and the rank0 probe's ADD-S within
+    CLUTTER_RANK0_ADDS_MM_MAX; then the artifact as one line (phase line
+    `parity_artifact`).  The CPU rehearsal (@small) runs synth_box's and
+    the network rows' first 2 frames on 8 hypotheses at a tiny size and
+    holds nothing."""
+    import contextlib
+    import io
+    from unittest import mock
+
+    _tools()
+    import make_parity_artifact_torch as mpa
+    import parity_check_torch as pc
+
     with open(os.path.join(REPO, "PARITY_r5.json")) as f:
-        jax_values = json.load(f)["scenes"]
-    make_engine = pc.make_engine
-    if small:
-        def make_engine(mesh, dev):
-            est = FoundationPose(model_pts=mesh.vertices, model_normals=mesh.vertex_normals,
-                                 mesh=mesh, device=dev, refiner=refiner, scorer=scorer,
-                                 prune_to=cfg.prune_to, coarse_hw=cfg.coarse_hw,
-                                 depth_polish=False, track_polish=False)
-            est.rot_grid = est.rot_grid[:: len(est.rot_grid) // 8][:8]
-            return est
+        jax_art = json.load(f)
+    out = os.path.join(REPO, "build", "chip_smoke", "PARITY_torch_r1.json")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
     _sync(device)
     _kernel_counts(reset=True)
     t0 = time.perf_counter()
-    # the tool's own indented JSON stays out of the script's lines
-    with mock.patch.object(pc, "make_engine", make_engine), _scene_icp_parameters(small), \
-            contextlib.redirect_stdout(io.StringIO()):
-        results = pc.run_all(2 if small else None, device,
-                             ("synth_box",) if small else pc.SCENES)
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(_small_tools(small, cfg))
+        if small:
+            stack.enter_context(mock.patch.object(pc, "SCENES", ("synth_box",)))
+        # the tools' own lines stay out of the script's
+        stack.enter_context(contextlib.redirect_stdout(io.StringIO()))
+        art = mpa.main("r1", out=out, device=device)
     _sync(device)
     k1, k2 = _kernel_counts()
-    breaches = [] if small else [b for k, v in results.items()
-                                 for b in pc.check_thresholds(k, v)]
+
+    def beside(port, jax):
+        return {m: {"port": v, "jax_r5": (jax or {}).get(m)} for m, v in port.items()}
+
+    rank0 = art["clutter_rank0"]
+    failed = [] if small else art["floors"]["breaches"] + (
+        [] if rank0["rank0_adds_mm"] <= CLUTTER_RANK0_ADDS_MM_MAX else
+        [f"clutter_rank0: rank0_adds_mm={rank0['rank0_adds_mm']:.4g} > "
+         f"{CLUTTER_RANK0_ADDS_MM_MAX}"])
     emit({"phase": "parity", "seconds": time.perf_counter() - t0, "k1_launches": k1,
-          "k2_launches": k2, "breaches": breaches,
-          "scenes": {k: {m: {"port": v[m], "jax_r5": jax_values.get(k, {}).get(m)}
-                         for m in v} for k, v in results.items()}})
-    if breaches:
-        raise RuntimeError(f"PARITY FLOOR BREACHED: {breaches}")
+          "k2_launches": k2, "device": art["device"], "breaches": art["floors"]["breaches"],
+          "failed": failed,
+          "scenes": {k: beside(v, jax_art["scenes"].get(k)) for k, v in art["scenes"].items()},
+          "network_mode": {k: beside(v, jax_art["network_mode"].get(k))
+                           for k, v in art["network_mode"].items()},
+          "clutter_rank0": beside(rank0, jax_art["clutter_rank0"])})
+    emit({"phase": "parity_artifact", "artifact": art})
+    if failed:
+        raise RuntimeError(f"PARITY FLOOR BREACHED: {failed}")
     return dict(launches=k1, k2_launches=k2)
+
+
+# phase evaluate: the basin angles run again through K1's plain version; the
+# candidate's refiner marked as trained with the visibility substitution at a
+# float gate ceiling; EVAL.json's keys (tools/eval_candidate.py's, on
+# synth_box) and its rank0 probe's
+EVAL_PLAIN_DEGS = (5, 20)
+CANDIDATE_OCC_SUB = 0.85
+EVAL_KEYS = ["weights_dir", "synth_box", "synth_box_network", "synth_clutter_network",
+             "clutter_rank0"]
+EVAL_RANK0_KEYS = ["occ_sub", "rank0_rot_deg", "rank0_adds_mm", "grid_best_rot_deg",
+                   "grid_best_adds_mm", "true_best_rank", "n_rot_lt10"]
+
+
+def phase_evaluate(device, cfg, small, train):
+    """Evaluating trained weights: (a) tools/eval_register_torch.py on
+    synth_box with the bundled networks (the refiner's basin, the refined
+    grid, the scorer's ranking), the basin at EVAL_PLAIN_DEGS again through
+    K1's plain version (the pose phase's limits), K1 held to its plain
+    version at the basin's B=8 shape (phase line `evaluate_k1`); (b) phase
+    train's nets (@train) saved as a candidate whose refiner was trained
+    with occ_sub CANDIDATE_OCC_SUB, and tools/eval_candidate_torch.py on it
+    with synth_box: EVAL.json with the JAX tool's keys, its clutter_rank0
+    carrying the ceiling, every refine handed it as a float.  Accuracy is
+    reported, not held: the phase's few steps train nothing."""
+    import contextlib
+    import inspect
+    import io
+    import shutil
+    import tempfile
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from sixdof_tpu_torch.models import predict
+    from sixdof_tpu_torch.parallel.train import save_params
+
+    _tools()
+    import eval_candidate_torch as ec
+    import eval_register_torch as er
+
+    # (a) the diagnostics on the bundled networks, then the basin through the
+    # plain raster
+    _sync(device)
+    _kernel_counts(reset=True)
+    t0 = time.perf_counter()
+    with _small_tools(small, cfg), contextlib.redirect_stdout(io.StringIO()):
+        reg = er.main("synth_box", "weights_torch", device=device)
+    _sync(device)
+    register_s = time.perf_counter() - t0
+    k1_register = _kernel_counts()[0]
+    with _small_tools(small, cfg):
+        probe = er.load(os.path.join(REPO, "demo_data", "synth_box"), "weights_torch", device)
+        plain = er.basin(probe, degs=EVAL_PLAIN_DEGS, plain_raster=True)
+    _sync(device)
+    plain_k1 = _kernel_counts()[0] - k1_register
+    kern = {r["deg"]: r["poses"] for r in reg["basin"]}
+    vs_rot = [max(_rot_deg(a[:3, :3], b[:3, :3]) for a, b in zip(kern[r["deg"]], r["poses"]))
+              for r in plain]
+    vs_trans = [float(np.abs(kern[r["deg"]][:, :3, 3] - r["poses"][:, :3, 3]).max())
+                for r in plain]
+    # K1 at the basin's shape: the 20 deg perturbations at the refiner's
+    # crops, rendered without culling, as the tool's refine renders them
+    H, W = probe.refiner.cfg["input_resize"]
+    k1 = phase_k1(device, [("basin", probe.est.mesh_tensors,
+                            torch.as_tensor(er.perturbations(probe.pose_c_gt, 20),
+                                            dtype=torch.float32, device=device), H, W)],
+                  torch.as_tensor(probe.K, dtype=torch.float32, device=device),
+                  float(probe.est.diameter), n_time=2 if small else 50, phase="evaluate_k1",
+                  cull=False)
+    del probe
+
+    # (b) phase train's nets as a candidate trained with a float gate ceiling
+    refine = predict.refine_poses
+    params = inspect.signature(refine)
+    seen = []
+
+    def recording(*args, **kw):
+        seen.append(params.bind(*args, **kw).arguments.get("occ_sub", False))
+        return refine(*args, **kw)
+
+    cand = tempfile.mkdtemp(prefix="candidate_")
+    try:
+        save_params(cand, "refiner", train["models"][0], {"occ_sub": CANDIDATE_OCC_SUB})
+        save_params(cand, "scorer", train["models"][1])
+        _sync(device)
+        _kernel_counts(reset=True)
+        t0 = time.perf_counter()
+        with _small_tools(small, cfg), mock.patch.object(predict, "refine_poses", recording), \
+                contextlib.redirect_stdout(io.StringIO()):
+            ev = ec.main(cand, ["synth_box"], device=device)
+        _sync(device)
+        candidate_s = time.perf_counter() - t0
+        k1_candidate, k2_candidate = _kernel_counts()
+        with open(os.path.join(cand, "EVAL.json")) as f:
+            written = json.load(f)
+    finally:
+        shutil.rmtree(cand, ignore_errors=True)
+    rank0 = written["clutter_rank0"]
+    checks = dict(
+        eval_keys=list(written) == EVAL_KEYS and written == json.loads(json.dumps(ev)),
+        floor_breaches="floor_breaches" in written["synth_box"],
+        rank0_keys=list(rank0) == EVAL_RANK0_KEYS,
+        rank0_occ_sub=type(rank0["occ_sub"]) is float and rank0["occ_sub"] == CANDIDATE_OCC_SUB,
+        refine_occ_sub=bool(seen) and all(type(x) is float and x == CANDIDATE_OCC_SUB
+                                          for x in seen))
+    res = dict(
+        register=reg["summary"], register_s=register_s, register_k1_launches=k1_register,
+        basin_vs_plain=dict(degs=list(EVAL_PLAIN_DEGS), rot_deg=vs_rot, trans_m=vs_trans,
+                            plain_k1_launches=plain_k1),
+        candidate=dict(seconds=candidate_s, k1_launches=k1_candidate,
+                       k2_launches=k2_candidate, refine_calls=len(seen),
+                       occ_sub_seen=sorted(set(map(repr, seen))), clutter_rank0=rank0,
+                       synth_box={k: written["synth_box"].get(k) for k in (
+                           "adds_mean_m", "rot_err_deg_mean", "floor_breaches")},
+                       network_rot_err_deg_mean={
+                           k: written[k]["rot_err_deg_mean"] for k in EVAL_KEYS[2:4]}),
+        checks=checks)
+    emit({"phase": "evaluate", **res})
+    if device.type == "cuda" and not (k1_register and k1_candidate and k2_candidate):
+        raise RuntimeError(f"phase evaluate did not launch K1 and K2: {res}")
+    if plain_k1 or max(vs_rot) > POSE_ROT_DEG_MAX or max(vs_trans) > POSE_TRANS_M_MAX:
+        raise RuntimeError(f"the basin through K1 and through its plain version disagree: "
+                           f"{res['basin_vs_plain']}")
+    if not all(checks.values()):
+        raise RuntimeError(f"the candidate's evaluation is not the JAX tool's: {checks}")
+    return dict(k1=k1, launches=k1_register + k1_candidate, k2_launches=k2_candidate)
 
 
 def phase_sweep(device, cfg, small, refiner, scorer):
@@ -3089,9 +3299,12 @@ def run(device="cuda", small=False):
     # frame (and the loop over a generated scene), the accuracy parity
     # harness, the register schedule sweep and FLOP accounting
     gen = phase_scene(dev, cfg, small, refiner, scorer)
-    parity = phase_parity(dev, cfg, small, refiner, scorer)
+    parity = phase_parity(dev, cfg, small)
     sweep = phase_sweep(dev, cfg, small, refiner, scorer)
     flops = phase_flops(dev, cfg, small, refiner, scorer)
+    # evaluating trained weights: the register diagnostics on the bundled
+    # networks, and phase train's nets as a candidate
+    ev = phase_evaluate(dev, cfg, small, train)
 
     main_shape = k1[0]
     kernels = [{
@@ -3100,8 +3313,10 @@ def run(device="cuda", small=False):
         "replaces": "sixdof_tpu/ops/pallas/raster_kernel.py:188",
         "launches": kern["launches"] + train["launches"] + bop["launches"]
         + live["k1_launches"] + field["launches"] + h5["launches"] + multi["k1_launches"]
-        + gen["launches"] + parity["launches"] + sweep["launches"] + flops["k1_launches"],
-        "max_abs_err": max(r["max_abs_depth_err"] for r in k1 + train["k1"] + gen["k1"]),
+        + gen["launches"] + parity["launches"] + sweep["launches"] + flops["k1_launches"]
+        + ev["launches"],
+        "max_abs_err": max(r["max_abs_depth_err"]
+                           for r in k1 + train["k1"] + gen["k1"] + ev["k1"]),
         "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"], "bound_by": main_shape["bound_by"],
         "library_ms": None,
@@ -3111,7 +3326,8 @@ def run(device="cuda", small=False):
         "source": "sixdof_tpu_torch/csrc/ray_mesh.cu",
         "replaces": "sixdof_tpu/ops/pallas/raytrace_kernel.py:85",
         "launches": cap["loop_k2_launches"] + clicks[0]["launches"] + live["k2_launches"]
-        + multi["k2_launches"] + gen["k2_launches"] + parity["k2_launches"],
+        + multi["k2_launches"] + gen["k2_launches"] + parity["k2_launches"]
+        + ev["k2_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in k2),
         "ms": k2[0]["ms"], "plain_ms": k2[0]["plain_ms"],
         "bound_ms": k2[0]["bound_ms"], "bound_by": k2[0]["bound_by"],

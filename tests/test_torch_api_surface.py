@@ -173,3 +173,35 @@ def test_port_counterpart_takes_jax_positional_parameters(rel, qualname, params)
     got = port[qualname]
     assert got[:len(params)] == params, \
         f"{rel}::{qualname}: JAX takes {params}, the port {got}"
+
+
+
+# The JAX tools the port's evaluation tools stand in for: each public
+# function's positional parameters begin with the JAX tool's, in its order,
+# and the port's `device` comes last.  eval_register.py runs at import: its
+# script's inputs (scene argument, WEIGHTS_DIR, OCC_SUB) are the port's
+# main's parameters, and its one function is a closure over the script's
+# frame, which the port's refine takes as its first parameter.
+TOOL_FUNCTIONS = {"eval_candidate": ["main", "rank0_probe"],
+                  "make_parity_artifact": ["main", "rank0_probe"]}
+EVAL_REGISTER_MAIN = ["scene", "weights_dir", "occ_sub", "device"]
+
+
+@pytest.mark.parametrize("tool", list(TOOL_FUNCTIONS))
+def test_evaluation_tools_take_jax_tools_parameters(tool):
+    jax_tool = _surface(os.path.join(REPO, "tools", f"{tool}.py"))
+    port = _surface(os.path.join(REPO, "tools", f"{tool}_torch.py"))
+    assert sorted(n for n in jax_tool if not n.startswith("_")) == TOOL_FUNCTIONS[tool]
+    for name in TOOL_FUNCTIONS[tool]:
+        got, want = port[name], jax_tool[name]
+        assert got[:len(want)] == want and got[-1] == "device", (tool, name, got, want)
+        assert "device" not in got[:-1]
+
+
+def test_eval_register_takes_the_jax_scripts_inputs():
+    jax_tool = _surface(os.path.join(REPO, "tools", "eval_register.py"))
+    port = _surface(os.path.join(REPO, "tools", "eval_register_torch.py"))
+    assert list(jax_tool) == ["refine"] and jax_tool["refine"] == ["poses", "iters"]
+    assert port["refine"][1:3] == ["poses", "iterations"]
+    assert port["main"] == EVAL_REGISTER_MAIN
+    assert {"basin", "refined_grid", "ranking"} <= set(port)

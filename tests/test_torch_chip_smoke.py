@@ -5,8 +5,9 @@ loop at --debug 2 and in viewer mode, the point-click path on a crust, the
 --icp registration, the trainer, the JPEG decoder, the BOP campaign (on a
 JPEG scene too), the live-camera loop
 against a stand-in Kinect, the neural object field, the H5 path and the
-multi-device path on gloo ranks of the CPU, its model axis too, and the
-start-up timeline in a fresh process) and the kernels line has the keys
+multi-device path on gloo ranks of the CPU, its model axis too, the
+start-up timeline in a fresh process, the parity artifact and the
+evaluation of weights) and the kernels line has the keys
 the card run reports; a phase that fails stops the script before its
 result."""
 import json
@@ -225,6 +226,42 @@ def test_chip_smoke_rehearsal_on_cpu(capsys):
     assert b["precompile_record"]["launches"] == {} and b["loop_k1_launches"] == 0
     assert 0 <= b["warmup_beside_setup_s"] <= b["warmup_s"] and b["register_waited_s"] >= 0
     assert set(b["capture_s"]) == {"2"} and b["second_register_s"] > 0
+    # the parity artifact: synth_box and the two network-mode rows at the
+    # rehearsal's size beside PARITY_r5.json, the rank0 probe, the artifact
+    # line with the JAX artifact's keys (and the device)
+    assert phases.index("cold") < phases.index("parity") < phases.index("parity_artifact") \
+        < phases.index("sweep") < phases.index("flops") < phases.index("evaluate_k1") \
+        < phases.index("evaluate")
+    parity = next(x for x in lines if x.get("phase") == "parity")
+    assert list(parity["scenes"]) == ["synth_box"] and parity["device"] == "cpu"
+    assert list(parity["network_mode"]) == ["synth_box", "synth_clutter"]
+    assert parity["network_mode"]["synth_box"]["rot_err_deg_mean"]["jax_r5"] > 170
+    assert parity["clutter_rank0"]["rank0_rot_deg"]["jax_r5"] < 6
+    assert parity["failed"] == [] and parity["k1_launches"] == parity["k2_launches"] == 0
+    art = next(x for x in lines if x.get("phase") == "parity_artifact")["artifact"]
+    with open(os.path.join(REPO, "PARITY_r5.json")) as f:
+        jax_keys = list(json.load(f))
+    assert [k for k in art if k != "device"] == jax_keys
+    assert art["tag"] == "r1" and art["weights_dir"] == "weights_torch"
+    assert art["clutter_rank0"]["prune_to"] == 64 and art["scenes"]["synth_box"]["frames"] == 2
+    # evaluating weights: the register diagnostics on the bundled networks,
+    # the basin through the plain raster alike, K1 at the basin's B=8 shape;
+    # phase train's nets as a candidate with a 0.85 gate ceiling
+    ek1 = next(x for x in lines if x.get("phase") == "evaluate_k1")
+    assert (ek1["shape"], ek1["B"], ek1["H"]) == ("basin", 8, 32)
+    assert ek1["tid_mismatch"] == 0 and ek1["max_abs_depth_err"] == 0.0
+    ev = next(x for x in lines if x.get("phase") == "evaluate")
+    assert [b["deg"] for b in ev["register"]["basin"]] == [5, 10, 20, 30, 45]
+    assert ev["register"]["grid"]["hypotheses"] == 8 and len(ev["register"]["ranking"]["top"]) == 5
+    assert ev["basin_vs_plain"]["degs"] == [5, 20]
+    assert max(ev["basin_vs_plain"]["rot_deg"]) == max(ev["basin_vs_plain"]["trans_m"]) == 0.0
+    assert all(ev["checks"].values()) and set(ev["checks"]) == {
+        "eval_keys", "floor_breaches", "rank0_keys", "rank0_occ_sub", "refine_occ_sub"}
+    cand = ev["candidate"]
+    assert cand["occ_sub_seen"] == ["0.85"] and cand["refine_calls"] > 2
+    assert cand["clutter_rank0"]["occ_sub"] == 0.85
+    assert set(cand["network_rot_err_deg_mean"]) == {"synth_box_network",
+                                                     "synth_clutter_network"}
     assert kernels[0]["launches"] == kernels[1]["launches"] == 0
 
 

@@ -16,9 +16,10 @@ from sixdof_tpu_torch.kernels import build
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FRAME = os.path.join(REPO, "demo_data", "synth_box", "rgb", "rgb_0000.png")
 # a frame filtered with Paeth on every row may take at most this many times
-# as long to decode as the same frame filtered with Sub (host time; the
-# byte-by-byte Python filters took 25-60x)
+# as long to decode as the same frame filtered with Sub (the calling
+# thread's CPU time; the byte-by-byte Python filters took 25-60x)
 MAX_PAETH_OVER_SUB = 3.0
+DECODES = 10  # of each filter, in turns; the best of each is compared
 
 
 def _encode(img, bit_depth, color_type, ftype):
@@ -102,18 +103,24 @@ def test_missing_compiler_raises(monkeypatch, tmp_path):
 
 def test_paeth_decodes_as_fast_as_sub(tmp_path):
     """A 640x480 colour frame filtered with Paeth on every row decodes in at
-    most MAX_PAETH_OVER_SUB times the time of the same frame with Sub."""
+    most MAX_PAETH_OVER_SUB times the time of the same frame with Sub.
+
+    Each decode is timed as the CPU time of the calling thread, which runs
+    both zlib and the C routine, so time the process spends waiting for a
+    core under load is not counted; the two filters are decoded in turns,
+    so a burst of load hits both, and the best of DECODES of each is kept."""
     img = cv2.imread(FRAME, -1)[..., ::-1]  # BGR -> RGB rows as the file stores them
     assert img.shape == (480, 640, 3)
-    times = {}
+    paths = {}
     for ftype in (1, 4):
-        path = tmp_path / f"f{ftype}.png"
-        path.write_bytes(_encode(img, 8, 2, ftype))
-        np.testing.assert_array_equal(png.read_png(str(path)), cv2.imread(str(path), -1))
-        best = float("inf")
-        for _ in range(5):
-            t0 = time.perf_counter()
-            png.read_png(str(path))
-            best = min(best, time.perf_counter() - t0)
-        times[ftype] = best
+        paths[ftype] = str(tmp_path / f"f{ftype}.png")
+        with open(paths[ftype], "wb") as f:
+            f.write(_encode(img, 8, 2, ftype))
+        np.testing.assert_array_equal(png.read_png(paths[ftype]), cv2.imread(paths[ftype], -1))
+    times = dict.fromkeys(paths, float("inf"))
+    for _ in range(DECODES):
+        for ftype, path in paths.items():
+            t0 = time.thread_time()
+            png.read_png(path)
+            times[ftype] = min(times[ftype], time.thread_time() - t0)
     assert times[4] <= MAX_PAETH_OVER_SUB * times[1], times

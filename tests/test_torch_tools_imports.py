@@ -1,8 +1,8 @@
-"""The port's scene, parity, sweep and FLOP tools stand alone: imported
-with every module their functions import (read from their source), and
-the scene generator run at a tiny size with the sensor model, in a fresh
-process, none of tests/test_torch_import.py's FORBIDDEN modules (jax, the
-JAX package, cv2, ...) is loaded."""
+"""The port's scene, parity, sweep, FLOP and evaluation tools stand alone:
+imported with every module their functions import (read from their
+source), and the scene generator run at a tiny size with the sensor model,
+in a fresh process, none of tests/test_torch_import.py's FORBIDDEN modules
+(jax, the JAX package, cv2, ...) is loaded."""
 import ast
 import os
 import subprocess
@@ -12,7 +12,8 @@ from test_torch_import import FORBIDDEN
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOOLS = ["sensor_model_torch", "make_demo_scene_torch", "parity_check_torch",
-         "sweep_register_schedule_torch", "flops_report_torch"]
+         "sweep_register_schedule_torch", "flops_report_torch", "eval_register_torch",
+         "eval_candidate_torch", "make_parity_artifact_torch"]
 
 
 def _imported_modules(path):
